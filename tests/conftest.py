@@ -29,3 +29,9 @@ jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
 assert jax.default_backend() == "cpu", (
     "tests must run on CPU; got " + jax.default_backend()
 )
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc; skipped without one"
+    )
