@@ -58,6 +58,29 @@ class PipelineConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class OptimizationConfig:
+    """Training hyperparameters (reference: arguments/__init__.py:71-89)."""
+
+    iterations: int = 30_000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 0.0000016
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 30_000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    lambda_dssim: float = 0.2
+    densification_interval: int = 100
+    opacity_reset_interval: int = 3000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 15_000
+    densify_grad_threshold: float = 0.0002
+    random_background: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
 class RasterConfig:
     """Rasterizer configuration.
 
@@ -76,9 +99,9 @@ class RasterConfig:
       strips: per-tile early-termination granularity of the reference
         kernels; it never changes the output, and the port's compositors
         accept and ignore it.
-      fast_fwd: inference-only forward without per-pixel termination (a
-        tile stops once every pixel's transmittance is below 1e-4).
-        Differentiating such a render raises.
+      fast_fwd: inference-only forward, within 4e-3 of exact; the port
+        runs the exact walk for it, which on the card is the faster one.
+        Differentiating such a render raises ValueError.
     """
 
     tile_size: int = 16

@@ -2,7 +2,9 @@
 //
 // Replaces: gsjax/render/pallas_kernels.py::composite_forward_pallas
 // (_fwd_kernel), the per-tile front-to-back alpha compositing of the
-// depth-sorted instance stream, in exact and `fast` modes.
+// depth-sorted instance stream. The TPU kernel's `fast` mode is served by
+// this exact walk: on this card the exact walk is both faster and closer
+// to the oracle (PERF.md).
 //
 // What bounds it on this card: arithmetic. Every (instance, pixel) pair of
 // a tile costs ~20 f32 operations and one exp, against 64 bytes read per
@@ -14,26 +16,24 @@
 // The block stages the tile's instance range through shared memory in
 // batches of blockDim.x rows (three 16-byte loads per row, one row per
 // thread), then every thread walks the batch sequentially in f32 with the
-// exact skip/termination rule of the reference (common.py, oracle.py):
+// exact skip/termination rule of the reference (common.py, oracle.py),
+// with the arithmetic it shares with the backward (composite_walk.cuh):
 //   power > 0 or alpha < 1/255  -> skip
 //   T * (1 - alpha) < 1e-4      -> the pixel is done; that contribution
 //                                  is not applied
 // The TPU kernel's in-chunk log-space cumsums on the matrix unit are not
 // needed: a GPU thread owns its pixel and runs the recurrence directly.
 // The block leaves its walk once every pixel is done
-// (__syncthreads_count), as the TPU kernel's strip skip does. `fast` drops
-// the per-pixel termination and leaves once every T < 1e-4.
+// (__syncthreads_count), as the TPU kernel's strip skip does.
 
 #include <cuda_runtime.h>
 
+#include "composite_walk.cuh"
+
 namespace {
 
-constexpr int kRowFloats = 16;  // instance row: 64 bytes
-constexpr float kAlphaCap = 0.99f;
-constexpr float kAlphaSkip = 1.0f / 255.0f;
-constexpr float kTEps = 1e-4f;
+using gsjt::kRowFloats;
 
-template <bool kFast>
 __global__ void __launch_bounds__(1024)
 composite_forward_kernel(const float* __restrict__ inst,
                          const int* __restrict__ tile_start,
@@ -60,8 +60,7 @@ composite_forward_kernel(const float* __restrict__ inst,
   for (int base = i0; base < i1; base += batch) {
     // Also the barrier that keeps the previous batch's rows until every
     // thread has read them.
-    const bool finished = kFast ? (!inside || T < kTEps) : done;
-    if (__syncthreads_count(finished) == batch) break;
+    if (__syncthreads_count(done) == batch) break;
     const int n = min(batch, i1 - base);
     if (p < n) {
       const float4* row = reinterpret_cast<const float4*>(
@@ -75,15 +74,14 @@ composite_forward_kernel(const float* __restrict__ inst,
     for (int k = 0; k < n; ++k) {
       const float4 g = s_geo[k];
       const float4 c = s_col[k];
-      const float dx = g.x - px;
-      const float dy = g.y - py;
-      const float power =
-          -0.5f * (g.z * dx * dx + c.x * dy * dy) - g.w * dx * dy;
+      const float power = gsjt::walk_power(gsjt::walk_delta(g.x, px),
+                                           gsjt::walk_delta(g.y, py), g.z,
+                                           g.w, c.x);
       if (power > 0.0f) continue;
-      const float alpha = fminf(kAlphaCap, s_op[k] * expf(power));
-      if (alpha < kAlphaSkip) continue;
-      const float t_next = T * (1.0f - alpha);
-      if (!kFast && t_next < kTEps) {
+      const float alpha = gsjt::walk_alpha(s_op[k], expf(power));
+      if (alpha < gsjt::kAlphaSkip) continue;
+      const float t_next = gsjt::walk_t_next(T, alpha);
+      if (t_next < gsjt::kTEps) {
         done = true;
         break;
       }
@@ -111,17 +109,12 @@ composite_forward_kernel(const float* __restrict__ inst,
 extern "C" int gsjt_composite_forward(const float* inst, const int* tile_start,
                                       float* color, float* trans, int n_tiles,
                                       int tiles_x, int tile_w, int tile_h,
-                                      int fast, void* stream) {
+                                      void* stream) {
   const int pix = tile_w * tile_h;
   const int threads = (pix + 31) / 32 * 32;
   const size_t smem = threads * (2 * sizeof(float4) + sizeof(float));
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fast) {
-    composite_forward_kernel<true><<<n_tiles, threads, smem, s>>>(
-        inst, tile_start, color, trans, tiles_x, tile_w, tile_h);
-  } else {
-    composite_forward_kernel<false><<<n_tiles, threads, smem, s>>>(
-        inst, tile_start, color, trans, tiles_x, tile_w, tile_h);
-  }
+  composite_forward_kernel<<<n_tiles, threads, smem,
+                             static_cast<cudaStream_t>(stream)>>>(
+      inst, tile_start, color, trans, tiles_x, tile_w, tile_h);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,1 +1,1 @@
-"""The forward render path: preprocess, binning, compositing."""
+"""The render path and its backward: preprocess, binning, compositing."""

@@ -15,7 +15,8 @@ The layout of `gsjax.render.binning`, integer for integer:
 3. Per-tile ranges are raw [start, end) offsets into the sorted stream.
 4. Budget overflow drops pairs deepest-first; the true counts are reported.
 
-Everything here is integer bookkeeping without gradients.
+Everything here is integer bookkeeping without gradients, except
+`permute_rows`, whose backward gathers through the inverse permutation.
 """
 
 from __future__ import annotations
@@ -63,9 +64,28 @@ def depth_order(depth: torch.Tensor) -> torch.Tensor:
     return torch.sort(depth.detach(), stable=True).indices.to(torch.int32)
 
 
+class _PermuteRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, perm):
+        perm = perm.long()
+        ctx.save_for_backward(perm)
+        return x.index_select(0, perm)
+
+    @staticmethod
+    def backward(ctx, ct):
+        (perm,) = ctx.saved_tensors
+        inverse = torch.empty_like(perm)
+        inverse[perm] = torch.arange(perm.shape[0], device=perm.device)
+        return ct.index_select(0, inverse), None
+
+
 def permute_rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """Rows of x in the order of the permutation perm."""
-    return x.index_select(0, perm.long())
+    """Rows of x in the order of the permutation perm.
+
+    A permutation's cotangent map is itself a permutation, so the backward
+    is a row gather through the inverse permutation (one collision-free
+    scatter to invert), not the generic gather transpose, a scatter-add."""
+    return _PermuteRows.apply(x, perm)
 
 
 def _f2i_clamped(v: torch.Tensor, hi: int) -> torch.Tensor:

@@ -1,12 +1,19 @@
 """The render path's hand-written CUDA kernels, their wrappers and their
 plain PyTorch versions.
 
-Three kernels, one per Pallas TPU kernel of the JAX package's forward
-render (gsjax/render/pallas_kernels.py):
+Five kernels, one per Pallas TPU kernel of the JAX package's render and
+its backward (gsjax/render/pallas_kernels.py):
 
-  composite_forward  <- composite_forward_pallas  (csrc/composite_forward.cu)
-  row_engine         <- row_engine_pallas         (csrc/row_engine.cu)
-  rank_prefix        <- rank_prefix_pallas        (csrc/rank_prefix.cu)
+  composite_forward   <- composite_forward_pallas   (csrc/composite_forward.cu)
+  row_engine          <- row_engine_pallas          (csrc/row_engine.cu)
+  rank_prefix         <- rank_prefix_pallas         (csrc/rank_prefix.cu)
+  composite_backward  <- composite_backward_pallas  (csrc/composite_backward.cu)
+  segment_sum         <- segment_sum_pallas         (csrc/segment_sum.cu)
+
+The two composite kernels take their walk's arithmetic from the same
+helpers (csrc/composite_walk.cuh) and are built with the same flags, so
+the backward replays the forward's skip and termination decisions bit for
+bit.
 
 Each wrapper dispatches on the device of its tensors: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version of the
@@ -49,11 +56,16 @@ NVCC_FLAGS = (
 # must agree bit for bit with its plain version: no fused multiply-adds.
 SOURCES = {
     "composite_forward.cu": (),
+    "composite_backward.cu": (),
     "row_engine.cu": ("--fmad=false",),
     "rank_prefix.cu": (),
+    "segment_sum.cu": (),
 }
 
-KERNEL_NAMES = ("composite_forward", "row_engine", "rank_prefix")
+KERNEL_NAMES = (
+    "composite_forward", "row_engine", "rank_prefix", "composite_backward",
+    "segment_sum",
+)
 launch_counts = {name: 0 for name in KERNEL_NAMES}
 
 _M32 = 0xFFFFFFFF
@@ -137,14 +149,15 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.gsjt_composite_forward.argtypes = [p, p, p, p, i, i, i, i, i, p]
+        lib.gsjt_composite_forward.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.gsjt_composite_backward.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gsjt_row_engine.argtypes = [
             p, i, p, i, i, i, i, i, p, p, p, p, p, p, p, p,
         ]
         lib.gsjt_rank_prefix.argtypes = [p, i, p, i, i, i, p, p]
-        for fn in (lib.gsjt_composite_forward, lib.gsjt_row_engine,
-                   lib.gsjt_rank_prefix):
-            fn.restype = ctypes.c_int
+        lib.gsjt_segment_sum.argtypes = [p, p, p, i, p]
+        for name in KERNEL_NAMES:
+            getattr(lib, f"gsjt_{name}").restype = ctypes.c_int
         _lib = lib
     return _lib
 
@@ -217,7 +230,6 @@ def composite_forward(
     tile_h: int,
     chunk: int = 128,
     strips: int = 1,
-    fast: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Front-to-back compositing of each tile's instance range.
 
@@ -228,14 +240,9 @@ def composite_forward(
     if not _route("composite_forward", inst, tile_start):
         return composite_forward_plain(
             inst, tile_start, n_tiles=n_tiles, tiles_x=tiles_x, tile_w=tile_w,
-            tile_h=tile_h, chunk=chunk, strips=strips, fast=fast,
+            tile_h=tile_h, chunk=chunk, strips=strips,
         )
-    pix = tile_w * tile_h
-    if pix > MAX_TILE_PIXELS:
-        raise ValueError(
-            f"composite_forward: tiles of {pix} pixels exceed the kernel's "
-            f"{MAX_TILE_PIXELS}"
-        )
+    pix = _tile_pixels("composite_forward", tile_w, tile_h)
     _require("composite_forward inst", inst, torch.float32, (inst.shape[0], 16))
     _require("composite_forward tile_start", tile_start, torch.int32, (n_tiles + 1,))
     tile_color = torch.empty((n_tiles, pix, 3), dtype=torch.float32, device=inst.device)
@@ -244,11 +251,104 @@ def composite_forward(
         return tile_color, tile_t
     err = _library().gsjt_composite_forward(
         inst.data_ptr(), tile_start.data_ptr(), tile_color.data_ptr(),
-        tile_t.data_ptr(), n_tiles, tiles_x, tile_w, tile_h, int(fast),
-        _stream(),
+        tile_t.data_ptr(), n_tiles, tiles_x, tile_w, tile_h, _stream(),
     )
     _check("composite_forward", err)
     return tile_color, tile_t
+
+
+# --- composite_backward ------------------------------------------------------
+
+composite_backward_plain = tiled.composite_backward_tiles
+
+
+def composite_backward(
+    inst: torch.Tensor,
+    tile_start: torch.Tensor,
+    cot: torch.Tensor,
+    *,
+    n_tiles: int,
+    tiles_x: int,
+    tile_w: int,
+    tile_h: int,
+    chunk: int = 128,
+    strips: int = 1,
+) -> torch.Tensor:
+    """Per-instance gradients of the composite (see
+    tiled.composite_backward_tiles).
+
+    inst (P, ROWS) f32, tile_start (n_tiles + 1,) int32, cot (n_tiles, PIX,
+    4) f32 [dC_r, dC_g, dC_b, A'_0]. Returns (P, ROWS) f32 with columns
+    [dmx, dmy, dca, dcb, dcc, dr, dg, db, dop, 0...]; rows no tile walk
+    reaches are zero. `chunk` and `strips` shape only the plain walk.
+    """
+    if not _route("composite_backward", inst, tile_start, cot):
+        return composite_backward_plain(
+            inst, tile_start, cot, n_tiles=n_tiles, tiles_x=tiles_x,
+            tile_w=tile_w, tile_h=tile_h, chunk=chunk, strips=strips,
+        )
+    pix = _tile_pixels("composite_backward", tile_w, tile_h)
+    _require("composite_backward inst", inst, torch.float32, (inst.shape[0], 16))
+    _require("composite_backward tile_start", tile_start, torch.int32, (n_tiles + 1,))
+    _require("composite_backward cot", cot, torch.float32, (n_tiles, pix, 4))
+    # Zero-filled: the kernel writes only the rows its walks reach.
+    grads = torch.zeros_like(inst)
+    if n_tiles == 0:
+        return grads
+    err = _library().gsjt_composite_backward(
+        inst.data_ptr(), tile_start.data_ptr(), cot.data_ptr(),
+        grads.data_ptr(), n_tiles, tiles_x, tile_w, tile_h, _stream(),
+    )
+    _check("composite_backward", err)
+    return grads
+
+
+def _tile_pixels(name: str, tile_w: int, tile_h: int) -> int:
+    pix = tile_w * tile_h
+    if pix > MAX_TILE_PIXELS:
+        raise ValueError(
+            f"{name}: tiles of {pix} pixels exceed the kernel's "
+            f"{MAX_TILE_PIXELS}"
+        )
+    return pix
+
+
+# --- segment_sum -------------------------------------------------------------
+
+
+def segment_sum_plain(vals: torch.Tensor, gm_start: torch.Tensor) -> torch.Tensor:
+    """out[o] = sum of rows [gm_start[o], gm_start[o+1]) of vals (P, F),
+    for each of the N owners of gm_start (N + 1,) (nondecreasing); an empty
+    run sums to 0."""
+    n = gm_start.shape[0] - 1
+    out = torch.zeros((n, vals.shape[1]), dtype=vals.dtype, device=vals.device)
+    if n == 0:
+        return out
+    lo, hi = int(gm_start[0]), int(gm_start[-1])
+    slots = torch.arange(lo, hi, dtype=gm_start.dtype, device=vals.device)
+    owner = torch.searchsorted(gm_start[1:].contiguous(), slots, right=True)
+    return out.index_add_(0, owner, vals[lo:hi])
+
+
+def segment_sum(vals: torch.Tensor, gm_start: torch.Tensor) -> torch.Tensor:
+    """Per-owner sums of an owner-grouped stream (see segment_sum_plain).
+
+    vals (P, 16) f32 rows grouped into ascending-owner runs; gm_start
+    (N + 1,) int32 run boundaries within [0, P]. Returns (N, 16) f32.
+    """
+    if not _route("segment_sum", vals, gm_start):
+        return segment_sum_plain(vals, gm_start)
+    _require("segment_sum vals", vals, torch.float32, (vals.shape[0], 16))
+    n = gm_start.shape[0] - 1
+    _require("segment_sum gm_start", gm_start, torch.int32, (n + 1,))
+    out = torch.empty((n, 16), dtype=torch.float32, device=vals.device)
+    if n == 0:
+        return out
+    err = _library().gsjt_segment_sum(
+        vals.data_ptr(), gm_start.data_ptr(), out.data_ptr(), n, _stream(),
+    )
+    _check("segment_sum", err)
+    return out
 
 
 # --- rank_prefix -------------------------------------------------------------

@@ -1,5 +1,6 @@
 """gsjax_torch stands alone: no file of it (nor chip_smoke.py) imports
-jax, flax or gsjax; it imports and renders with JAX made unimportable; and
+jax, flax or gsjax; it imports, renders and takes a training step with JAX
+made unimportable; and
 its entry points default to CUDA and raise without it rather than fall
 back to the CPU."""
 
@@ -58,6 +59,15 @@ def test_renders_on_cpu_with_jax_unimportable():
         "                 cfg=RasterConfig(max_instances=4096, max_rows=4096),\n"
         "                 alive=a.alive)\n"
         "assert out.image.shape == (3, 32, 32) and bool(torch.isfinite(out.image).all())\n"
+        "from gsjax_torch.config import OptimizationConfig\n"
+        "from gsjax_torch.train.optimizer import adam_init\n"
+        "from gsjax_torch.train.step import TrainState, train_step\n"
+        "st = TrainState(p, adam_init(p), a, torch.tensor(1, dtype=torch.int32))\n"
+        "st, m = train_step(st, cam, out.image.detach(), torch.zeros(3),\n"
+        "                   active_sh_degree=3, opt_cfg=OptimizationConfig(),\n"
+        "                   raster_cfg=RasterConfig(max_instances=4096, max_rows=4096),\n"
+        "                   spatial_lr_scale=1.0)\n"
+        "assert bool(torch.isfinite(m.loss)) and int(st.step) == 2\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'gsjax')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
         "print('ok')\n"

@@ -145,12 +145,14 @@ def test_alive_half_and_outside_paths(scene):
 
 
 def test_composite_backward_raises(scene):
+    """fast_fwd is inference-only: differentiating such a render raises, as
+    gsjax's does (tests/test_renderer.py::test_fast_fwd_close_to_exact_and_guarded)."""
     params = to_torch_params(scene["jparams"])
     out = tapi.render(
         params, scene["cam"], active_sh_degree=3, bg_color=torch.tensor(BG),
-        cfg=CFG, alive=scene["alive"],
+        cfg=dataclasses.replace(CFG, fast_fwd=True), alive=scene["alive"],
     )
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="fast_fwd"):
         out.image.sum().backward()
 
 
