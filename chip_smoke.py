@@ -23,18 +23,32 @@ Phases, one JSON line each (any failure exits non-zero):
            render(); the forward kernels' launch counts over that run
   views    per-view render time (CUDA events and host clock)
   profile  device time by kernel over one render (torch.profiler)
+  tiles    the composite kernels at 64x32 and 64x64 tiles (up to four
+           pixels per thread) against their plain versions on the mid
+           scene (also in the oracle phase, at 64x32)
   train    train_step() on the bench scene against the exact render of
            that scene, from a perturbed copy: 3 warm-up and 10 timed steps
            (loss per step, ms per step, pixels/s, host ms); all five
            kernels' launch counts over those steps; a profile of one step
+  tools    the profiling tools' four kernels (gsjax_torch/tools/kernels.py)
+           against their plain versions on the mid scene; then the tools'
+           own path, gsjax_torch.tools.{ablate_kernels, probe_outpath,
+           probe_prims}, on the bench origin view (one line per
+           measurement), with the four kernels' launch counts over it;
+           then each kernel against its plain version at that view's own
+           arguments (row_gather: the instance gather's (N,16) rows at P)
+  bench    gsjax_torch.bench's JSON line on the bench scene
+  stages   gsjax_torch.profile_stages' table on the bench scene
 Then the `kernels` line: for the forward kernels at the origin view's
-render, for the backward kernels at one training step, each kernel's
-launches (over the training run), its error against its plain version on
-those very arguments (max_abs_err; the kernels phase's errors in
-mid_scene_max_abs_err), device time from the profiler, time by CUDA events
-with the host's launch work included, plain time, bound, and the time of
-one PyTorch call computing the same function where there is one. Then the
-card line and the result line.
+render, for the backward kernels at one training step, for the tools'
+kernels at the origin view's instance stream, each kernel's launches (over
+the training run; the tools' over their own path, with "path": "tools"
+and 0 launches per step and per view), its error against its plain
+version on those very arguments (max_abs_err; the kernels and tools
+phases' errors in mid_scene_max_abs_err), device time from the profiler,
+time by CUDA events with the host's launch work included, plain time,
+bound, and the time of one PyTorch call computing the same function where
+there is one. Then the card line and the result line.
 Imports no JAX.
 """
 
@@ -73,6 +87,10 @@ PLAIN_SOURCE = {
     "rank_prefix": "gsjax_torch/render/kernels.py",
     "composite_backward": "gsjax_torch/render/tiled.py",
     "segment_sum": "gsjax_torch/render/kernels.py",
+    "row_gather": "gsjax_torch/tools/kernels.py",
+    "outpath": "gsjax_torch/tools/kernels.py",
+    "blockout": "gsjax_torch/tools/kernels.py",
+    "variant": "gsjax_torch/tools/kernels.py",
 }
 REPLACES = {
     "composite_forward": "gsjax/render/pallas_kernels.py:220",
@@ -80,6 +98,10 @@ REPLACES = {
     "rank_prefix": "gsjax/render/pallas_kernels.py:524",
     "composite_backward": "gsjax/render/pallas_kernels.py:1153",
     "segment_sum": "gsjax/render/pallas_kernels.py:331",
+    "row_gather": "tools/probe_prims.py:81",
+    "outpath": "tools/probe_outpath.py:91",
+    "blockout": "tools/ablate_kernels.py:121",
+    "variant": "tools/ablate_kernels.py:257",
 }
 SOURCES = {
     "composite_forward": "gsjax_torch/csrc/composite_forward.cu",
@@ -87,6 +109,10 @@ SOURCES = {
     "rank_prefix": "gsjax_torch/csrc/rank_prefix.cu",
     "composite_backward": "gsjax_torch/csrc/composite_backward.cu",
     "segment_sum": "gsjax_torch/csrc/segment_sum.cu",
+    "row_gather": "gsjax_torch/csrc/row_gather.cu",
+    "outpath": "gsjax_torch/csrc/composite_probes.cu",
+    "blockout": "gsjax_torch/csrc/composite_probes.cu",
+    "variant": "gsjax_torch/csrc/composite_probes.cu",
 }
 # Names of each wrapper's CUDA kernels, as the profiler reports them.
 DEVICE_KERNELS = {
@@ -95,6 +121,10 @@ DEVICE_KERNELS = {
     "rank_prefix": "rank_prefix_kernel",
     "composite_backward": "composite_backward_kernel",
     "segment_sum": "segment_sum_kernel",
+    "row_gather": "row_gather_kernel",
+    "outpath": "outpath_kernel",
+    "blockout": "blockout_kernel",
+    "variant": "variant_",
 }
 BACKWARD_KERNELS = ("composite_backward", "segment_sum")
 FORWARD_KERNELS = ("composite_forward", "row_engine", "rank_prefix")
@@ -123,47 +153,6 @@ class Recorder:
     def __exit__(self, *exc):
         for name, real in self.real.items():
             setattr(self.kernels, name, real)
-
-
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device time of fn() in ms, by CUDA events over `reps` runs."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
-def device_ms(fn, kernel_name: str, reps: int = 20) -> float:
-    """Mean device time in ms of the CUDA kernels named `kernel_name*`
-    that one fn() launches, from torch.profiler over `reps` runs. Unlike
-    cuda_ms it leaves out the host's time between launches, which is
-    longer than a microsecond kernel."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    # A profiling session now and then records no device events at all;
-    # such a session is taken again.
-    for _ in range(3):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and kernel_name in e.key)
-        if us > 0:
-            return us / 1e3 / reps
-    raise AssertionError(f"the profiler saw no device time for {kernel_name}")
 
 
 def check_backward_kernels(kernels, calls, errs, where):
@@ -224,31 +213,50 @@ def phase_device():
     return smi
 
 
+def kernel_label(mangled: str) -> str:
+    """A kernel's short name, with its template arguments, from its mangled
+    name: composite_forward_kernel<1>, row_gather_kernel<i,16>."""
+    if not mangled.startswith("_ZN"):
+        return mangled
+    i, name = 3, mangled
+    while i < len(mangled) and mangled[i].isdigit():  # <length><identifier>...
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    if mangled[i:i + 1] == "I":
+        args = re.findall(r"L[a-z](\d+)E?|([a-z])", mangled[i + 1:mangled.find("EE", i)])
+        name += f"<{','.join(a or t for a, t in args)}>"
+    return name
+
+
 def phase_build(kernels):
     t0 = time.perf_counter()
     kernels.build()
     seconds = time.perf_counter() - t0
-    regs = {}
-    for fn, n in re.findall(r"properties for (\S+)\n.*?Used (\d+) registers",
-                            kernels.build_log(), re.S):
-        short = re.search(r"\d+([a-z_]+_kernel(?:ILb[01])?|[a-z_]+)E", fn)
-        regs[short.group(1) if short else fn] = int(n)
-    spills = re.findall(r"(\d+) bytes spill stores", kernels.build_log())
-    emit({"phase": "build", "seconds": seconds, "registers": regs,
-          "spill_store_bytes": [int(s) for s in spills]})
+    found = re.findall(
+        r"Function properties for (\S+)\n\s*\d+ bytes stack frame, (\d+) bytes "
+        r"spill stores[^\n]*\n[^\n]*Used (\d+) registers", kernels.build_log())
+    emit({"phase": "build", "seconds": seconds,
+          "registers": {kernel_label(fn): int(r) for fn, _, r in found},
+          "spill_store_bytes": {kernel_label(fn): int(b) for fn, b, _ in found
+                                if int(b)}})
 
 
 def mid_scene_checks(torch, kernels, render, RasterConfig, random_scene,
                      look_at_origin_camera, dev, errs):
     """Each kernel against its plain version on the arguments of a
     20k-Gaussian 320x240 render and its backward (16x16, 32x32 and an
-    overflowing budget)."""
+    overflowing budget); at 64x32 and 64x64 tiles (the tiles phase), where
+    the composite kernels give each thread two and four pixels."""
     params, aux = random_scene(20_000, seed=1, spread=1.5, device=dev)
     cam = look_at_origin_camera(320, 240, device=dev)
     cases = {
         "16x16": RasterConfig(tile_size=16, max_instances=1 << 18, max_rows=1 << 16),
         "32x32": RasterConfig(tile_size=32, max_instances=1 << 18, max_rows=1 << 16),
         "overflow": RasterConfig(tile_size=16, max_instances=1 << 14, max_rows=1 << 12),
+        "64x32": RasterConfig(tile_w=64, tile_h=32, max_instances=1 << 18, max_rows=1 << 16),
+        "64x64": RasterConfig(tile_w=64, tile_h=64, max_instances=1 << 18, max_rows=1 << 16),
     }
     for case, cfg in cases.items():
         kernels.reset_launch_counts()
@@ -260,8 +268,8 @@ def mid_scene_checks(torch, kernels, render, RasterConfig, random_scene,
         overflow = n_inst > cfg.max_instances or n_rows > cfg.max_rows
         if overflow != (case == "overflow"):
             raise AssertionError(f"{case}: overflow={overflow} ({n_inst}, {n_rows})")
-        line = {"phase": "kernels", "case": case, "num_instances": n_inst,
-                "num_rows": n_rows}
+        line = {"phase": "tiles" if case.startswith("64") else "kernels",
+                "case": case, "num_instances": n_inst, "num_rows": n_rows}
         for name in ("row_engine", "rank_prefix"):
             args, kw = rec.calls[name]
             e = max_err(getattr(kernels, name)(*args, **kw),
@@ -350,59 +358,67 @@ def rank_form_check(torch, kernels, render, RasterConfig, random_scene,
 def phase_oracle(torch, render, render_oracle, RasterConfig, random_scene,
                  look_at_origin_camera, dev):
     """render() and its gradients against the oracle and the oracle's
-    autograd (2k Gaussians at 128x96): images within 2e-3 (fast_fwd
-    4e-3); the six raw-parameter and the mean2d_offset gradients within
-    5e-3 of each one's largest; with half the slots dead, their gradients
-    exactly 0."""
+    autograd (2k Gaussians at 128x96), in 16x16 and 64x32 tiles: images
+    within 2e-3 (fast_fwd 4e-3); the six raw-parameter and the
+    mean2d_offset gradients within 5e-3 of each one's largest; with half
+    the slots dead (16x16), their gradients exactly 0."""
     from gsjax_torch.model import PARAM_NAMES
 
     params, aux = random_scene(2_000, seed=2, device=dev)
     cam = look_at_origin_camera(128, 96, device=dev)
     bg = torch.tensor([0.2, 0.3, 0.4], device=dev)
+    leaves = [getattr(params, k) for k in PARAM_NAMES]
     with torch.no_grad():
         want = render_oracle(params, cam, active_sh_degree=3, bg_color=bg, alive=aux.alive)
-        line = {"phase": "oracle", "gaussians": 2000, "width": 128, "height": 96}
-        for fast, tol in ((False, 2e-3), (True, 4e-3)):
-            cfg = RasterConfig(tile_size=16, max_instances=1 << 16, max_rows=1 << 14,
-                               fast_fwd=fast)
-            img = render(params, cam, active_sh_degree=3, bg_color=bg, cfg=cfg,
-                         alive=aux.alive).image
-            e = float((img - want).abs().max())
-            if not e <= tol:
-                raise AssertionError(f"render fast={fast} vs oracle: {e} > {tol}")
-            line["fast_err" if fast else "exact_err"] = e
-
-    cfg = RasterConfig(tile_size=16, max_instances=1 << 16, max_rows=1 << 14)
-    leaves = [getattr(params, k) for k in PARAM_NAMES]
 
     def grads(fn, alive):
         off = torch.zeros((params.capacity, 2), device=dev, requires_grad=True)
         img = fn(alive, off)
         return torch.autograd.grad(torch.mean(img ** 2), leaves + [off])
 
-    def tiled(alive, off):
-        return render(params, cam, active_sh_degree=3, bg_color=bg, cfg=cfg,
-                      alive=alive, mean2d_offset=off).image
-
     def oracle(alive, off):
         return render_oracle(params, cam, active_sh_degree=3, bg_color=bg,
                              alive=alive, mean2d_offset=off)
 
-    got, ref = grads(tiled, aux.alive), grads(oracle, aux.alive)
-    names = (*PARAM_NAMES, "mean2d_offset")
-    grad_err = {}
-    for name, g, r in zip(names, got, ref):
-        grad_err[name] = float((g - r).abs().max() / r.abs().max().clamp(min=1e-8))
-        if not grad_err[name] <= 5e-3:
-            raise AssertionError(f"render grad {name} vs oracle: {grad_err[name]} > 5e-3")
-    half = aux.alive & (torch.arange(params.capacity, device=dev) < 1_000)
-    dead = grads(tiled, half)
-    if any(bool((g[1_000:] != 0).any()) for g in dead) or not bool(
-            (dead[0][:1_000] != 0).any()):
-        raise AssertionError("dead slots' gradients are not exactly 0")
-    line["grad_err"] = grad_err
-    line["dead_slot_grads_zero"] = True
-    emit(line)
+    ref = grads(oracle, aux.alive)
+    for tw, th in ((16, 16), (64, 32)):
+        line = {"phase": "oracle", "gaussians": 2000, "width": 128, "height": 96,
+                "tile": f"{tw}x{th}"}
+        with torch.no_grad():
+            for fast, tol in ((False, 2e-3), (True, 4e-3)):
+                cfg = RasterConfig(tile_w=tw, tile_h=th, max_instances=1 << 16,
+                                   max_rows=1 << 14, fast_fwd=fast)
+                img = render(params, cam, active_sh_degree=3, bg_color=bg, cfg=cfg,
+                             alive=aux.alive).image
+                e = float((img - want).abs().max())
+                if not e <= tol:
+                    raise AssertionError(f"{tw}x{th} render fast={fast} vs oracle: "
+                                         f"{e} > {tol}")
+                line["fast_err" if fast else "exact_err"] = e
+
+        cfg = RasterConfig(tile_w=tw, tile_h=th, max_instances=1 << 16, max_rows=1 << 14)
+
+        def tiled(alive, off):
+            return render(params, cam, active_sh_degree=3, bg_color=bg, cfg=cfg,
+                          alive=alive, mean2d_offset=off).image
+
+        got = grads(tiled, aux.alive)
+        names = (*PARAM_NAMES, "mean2d_offset")
+        grad_err = {}
+        for name, g, r in zip(names, got, ref):
+            grad_err[name] = float((g - r).abs().max() / r.abs().max().clamp(min=1e-8))
+            if not grad_err[name] <= 5e-3:
+                raise AssertionError(f"{tw}x{th} render grad {name} vs oracle: "
+                                     f"{grad_err[name]} > 5e-3")
+        line["grad_err"] = grad_err
+        if tw == 16:
+            half = aux.alive & (torch.arange(params.capacity, device=dev) < 1_000)
+            dead = grads(tiled, half)
+            if any(bool((g[1_000:] != 0).any()) for g in dead) or not bool(
+                    (dead[0][:1_000] != 0).any()):
+                raise AssertionError("dead slots' gradients are not exactly 0")
+            line["dead_slot_grads_zero"] = True
+        emit(line)
 
 
 def composite_pairs(torch, inst, tile_start, *, n_tiles, tiles_x, tile_w, tile_h):
@@ -439,30 +455,172 @@ def composite_pairs(torch, inst, tile_start, *, n_tiles, tiles_x, tile_w, tile_h
     return total, live_total
 
 
-def profile_table(torch, fn, unprofiled_ms, **line):
-    """Device time by kernel over one fn() from torch.profiler: busy ms,
-    the idle share against `unprofiled_ms` (the same work timed by CUDA
-    events, without the profiler) and the top device ops."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+def check_tool_kernels(torch, tool_kernels, stream, where):
+    """The profiling tools' four kernels against their plain versions on
+    one instance stream (tools/common.InstanceStream): row_gather on the
+    instance gather's own (N,16) rows at P with int32 and int64 indices,
+    exactly; outpath and blockout (both variants, both semantics) within
+    the forward's 2e-3, the notrans block sum within rtol 1e-5 of its 4 PIX
+    summed values (the rest of the block exactly 0); each ablation variant
+    as tests/test_torch_tools.py holds it (dma_only rtol 1e-6, the walks
+    2e-3 per chunk summed, bwd_nowrite 5e-3 of the largest |d_mx|).
+    Returns {kernel: max abs error} and the variants' errors."""
+    from gsjax_torch.render import kernels
+    from gsjax_torch.render.common import N_FIELDS, ROWS
 
+    inst, ts, geo = stream.inst, stream.tile_start, stream.geometry
+    pix = geo["tile_w"] * geo["tile_h"]
+    errs, variant_errs = {}, {}
+    with torch.no_grad():
+        src = torch.nn.functional.pad(stream.fields, (0, ROWS - N_FIELDS, 0, 1))
+        for idx in (stream.binning.sorted_owner, stream.binning.sorted_owner.long()):
+            if not torch.equal(tool_kernels.row_gather(src, idx),
+                               tool_kernels.row_gather_plain(src, idx)):
+                raise AssertionError(f"{where}: row_gather differs from plain")
+        errs["row_gather"] = 0.0
+
+        ship = tool_kernels.outpath(inst, ts, "ship", **geo)
+        e = max_err(ship, tool_kernels.outpath_plain(inst, ts, "ship", **geo))
+        got = tool_kernels.outpath(inst, ts, "notrans", **geo)
+        want = tool_kernels.outpath_plain(inst, ts, "notrans", **geo)
+        rel = float(((got[:, 0, 0] - want[:, 0, 0]).abs()
+                     / want[:, 0, 0].abs().clamp(min=1e-30)).max())
+        got[:, 0, 0] = 0
+        if not e <= 2e-3 or not rel <= 1e-5 or bool((got != 0).any()):
+            raise AssertionError(f"{where}: outpath ship {e}, notrans rtol {rel}")
+        errs["outpath"] = e
+
+        e = 0.0
+        for sem in tool_kernels.SEMANTICS:
+            e = max(e, max_err(tool_kernels.blockout(inst, ts, sem, **geo),
+                               tool_kernels.blockout_plain(inst, ts, sem, **geo)))
+        if not e <= 2e-3:
+            raise AssertionError(f"{where}: blockout error {e} > 2e-3")
+        errs["blockout"] = e
+
+        _, mask = tool_kernels._chunk_heads(ts, geo["n_tiles"])
+        max_chunks = int(mask.sum(1).max())
+        cot = tool_kernels.bwd_nowrite_cot(geo["n_tiles"], pix, inst.device)
+        d_mx = float(kernels.composite_backward(inst, ts, cot, **geo)[:, 0].abs().max())
+        for name in tool_kernels.VARIANTS:
+            got = tool_kernels.variant(inst, ts, name, **geo)
+            want = tool_kernels.variant_plain(inst, ts, name, **geo)
+            e = max_err(got, want)
+            if name == "dma_only":
+                ok = bool(((got - want).abs() <= 1e-6 * want.abs()).all())
+            elif name == "bwd_nowrite":
+                ok = e <= 5e-3 * d_mx
+            else:
+                ok = e <= 2e-3 * (max_chunks if name == "fwd_nodep" else 1)
+            if not ok:
+                raise AssertionError(f"{where}: variant {name} error {e}")
+            variant_errs[name] = e
+        errs["variant"] = max(variant_errs.values())
+    return errs, variant_errs
+
+
+def phase_tools(torch, tool_kernels, stream_mid, stream_bench):
+    """The tools' kernels against their plain versions on the mid scene;
+    then the tools' own path on the bench origin view with the four
+    kernels' launch counts set to 0 just before and read just after; then
+    the kernels against their plain versions at that view's arguments.
+    Returns the tools' measurement rows, the launches and both errors."""
+    from gsjax_torch.tools import ablate_kernels, probe_outpath, probe_prims
+
+    mid_errs, mid_variants = check_tool_kernels(torch, tool_kernels, stream_mid,
+                                                "mid scene")
+    emit({"phase": "tools", "case": "mid_scene", "max_abs_err": mid_errs,
+          "variants": mid_variants})
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = sorted(
-        ((e.self_device_time_total, e.key, e.count)
-         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
-        reverse=True,
-    )
-    busy_ms = sum(r[0] for r in rows) / 1e3
-    emit(dict(line, profiled_wall_ms=wall_ms, unprofiled_ms=unprofiled_ms,
-              device_busy_ms=busy_ms, idle_share=1.0 - busy_ms / unprofiled_ms,
-              device_kernels=sum(r[2] for r in rows),
-              top=[{"name": k[:90], "ms": us / 1e3, "count": c}
-                   for us, k, c in rows[:15]]))
+    tool_kernels.reset_launch_counts()
+    rows = ablate_kernels.ablate(
+        stream_bench, (*tool_kernels.VARIANTS, "blockout", "blockout_parallel"))
+    rows += probe_outpath.outpaths(stream_bench)
+    rows += probe_prims.probe()
+    torch.cuda.synchronize()
+    launches = dict(tool_kernels.launch_counts)
+    for row in rows:
+        emit(dict(phase="tools", **row))
+    missing = [k for k in tool_kernels.KERNEL_NAMES if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the tools' path: {missing}")
+    emit({"phase": "tools", "launches": launches})
+    errs, variant_errs = check_tool_kernels(torch, tool_kernels, stream_bench,
+                                            "bench view")
+    emit({"phase": "tools", "case": "bench_view", "max_abs_err": errs,
+          "variants": variant_errs})
+    return rows, launches, mid_errs, errs, variant_errs
+
+
+def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
+                 variant_errs, fwd_entry, main_launches):
+    """The `kernels` line's entries of the tools' four kernels at the bench
+    origin view: device and event ms from the tools' own run (`rows`),
+    the plain versions timed here, bounds from this view's data (the
+    composite's pairs are the forward entry's, counted on the same
+    stream)."""
+    from gsjax_torch.render.common import N_FIELDS, ROWS
+    from gsjax_torch.tools.common import cuda_ms, device_ms
+    from gsjax_torch.tools.probe_prims import gather_bytes
+
+    inst, ts, geo = stream.inst, stream.tile_start, stream.geometry
+    pix = geo["tile_w"] * geo["tile_h"]
+    n_live, n_tiles = int(ts[-1]), geo["n_tiles"]
+    pairs, live = fwd_entry["pairs_evaluated"], fwd_entry["pairs_live"]
+    timed = {r["variant"]: r for r in rows if "variant" in r}
+    out = []
+
+    def entry(name, ms, event_ms, plain, nbytes, flops, library_ms=None, **extra):
+        with torch.no_grad():
+            plain_ms = cuda_ms(plain, reps=2)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / F32_FLOP_PER_S * 1e3
+        out.append(dict(
+            name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
+            launches=launches[name], path="tools",
+            step_launches=main_launches["step"][name],
+            view_run_launches=main_launches["views"][name],
+            max_abs_err=errs[name], mid_scene_max_abs_err=mid_errs[name], ms=ms,
+            plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
+            bound_by="bytes" if t_bytes >= t_ops else "operations",
+            library_ms=library_ms, plain_source=PLAIN_SOURCE[name],
+            event_ms=event_ms, bytes=nbytes, flops=flops, **extra))
+
+    with torch.no_grad():
+        src = torch.nn.functional.pad(stream.fields, (0, ROWS - N_FIELDS, 0, 1))
+        idx = stream.binning.sorted_owner
+        n_rows = idx.shape[0]
+        gather = lambda: tool_kernels.row_gather(src, idx)  # noqa: E731
+        entry("row_gather", device_ms(gather, DEVICE_KERNELS["row_gather"]),
+              cuda_ms(gather, reps=20, warmup=2),
+              lambda: tool_kernels.row_gather_plain(src, idx),
+              gather_bytes(idx, ROWS), 0,
+              library_ms=cuda_ms(lambda: torch.index_select(src, 0, idx), reps=20,
+                                 warmup=2),
+              library_int64_ms=cuda_ms(
+                  lambda: torch.index_select(src, 0, idx.long()), reps=20, warmup=2),
+              shape=f"({src.shape[0]},{ROWS})@{n_rows}")
+    outpath = {r["variant"]: r for r in rows if r["tool"] == "probe_outpath"}
+    entry("outpath", outpath["ship"]["ms"], outpath["ship"]["event_ms"],
+          lambda: tool_kernels.outpath_plain(inst, ts, "ship", **geo),
+          n_live * 9 * 4 + ts.numel() * 4 + n_tiles * 8 * pix * 4,
+          pairs * COMPOSITE_FLOP_PER_PAIR, variant="ship",
+          notrans_ms=outpath["notrans"]["ms"])
+    entry("blockout", timed["blockout"]["ms"], timed["blockout"]["event_ms"],
+          lambda: tool_kernels.blockout_plain(inst, ts, **geo),
+          n_live * 9 * 4 + ts.numel() * 4 + n_tiles * pix * 16,
+          pairs * COMPOSITE_FLOP_PER_PAIR, semantics="arbitrary",
+          parallel_ms=timed["blockout_parallel"]["ms"])
+    entry("variant", timed["bwd_nowrite"]["ms"], timed["bwd_nowrite"]["event_ms"],
+          lambda: tool_kernels.variant_plain(inst, ts, "bwd_nowrite", **geo),
+          n_live * 64 + n_tiles * pix * 16 + ts.numel() * 4 + n_tiles * 4,
+          pairs * COMPOSITE_FLOP_PER_PAIR + live * BACKWARD_FLOP_PER_LIVE_PAIR,
+          variant="bwd_nowrite",
+          variants={v: dict(ms=timed[v]["ms"], event_ms=timed[v]["event_ms"],
+                            max_abs_err=variant_errs[v]) for v in tool_kernels.VARIANTS},
+          composite_forward_ms=timed["composite_forward"]["ms"],
+          composite_backward_ms=timed["composite_backward"]["ms"])
+    return out
 
 
 def phase_train(torch, kernels, random_scene, camera, gt, dev):
@@ -480,6 +638,7 @@ def phase_train(torch, kernels, random_scene, camera, gt, dev):
     from gsjax_torch.model import PARAM_NAMES
     from gsjax_torch.train.optimizer import adam_init
     from gsjax_torch.train.step import TrainState, train_step
+    from gsjax_torch.tools.common import profile_table
 
     params, aux = random_scene(
         BENCH_N, capacity=BENCH_N, sh_degree=3, seed=0, spread=2.5,
@@ -555,7 +714,7 @@ def phase_train(torch, kernels, random_scene, camera, gt, dev):
     def one_step():
         holder[0], _ = step(holder[0])
 
-    profile_table(torch, one_step, ms, phase="profile", path="train_step")
+    emit(dict(phase="profile", path="train_step", **profile_table(one_step, ms)))
     return calls, launches
 
 
@@ -570,6 +729,10 @@ def main() -> int:
     from gsjax_torch.render.api import render, render_oracle
     from gsjax_torch.synthetic import (
         look_at_origin_camera, orbit_camera, random_scene,
+    )
+    from gsjax_torch.tools import kernels as tool_kernels
+    from gsjax_torch.tools.common import (
+        cuda_ms, device_ms, instance_stream, profile_table,
     )
 
     dev = torch.device("cuda")
@@ -606,6 +769,7 @@ def main() -> int:
     with torch.no_grad():
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
+        tool_kernels.reset_launch_counts()
         with Recorder(kernels) as rec:
             for view in views:
                 for fast in (False, True):
@@ -614,6 +778,7 @@ def main() -> int:
                         origin_calls = dict(rec.calls)
         torch.cuda.synchronize()
         launches = dict(kernels.launch_counts)
+        main_launches = {"views": dict(tool_kernels.launch_counts)}
     missing = [k for k in FORWARD_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the render path: {missing}")
@@ -658,14 +823,35 @@ def main() -> int:
 
         # --- device time by kernel over one render ---------------------------
         for fast in (False, True):
-            profile_table(torch, lambda: draw("origin", fast), origin_ms[fast],
-                          phase="profile", view="origin", fast_fwd=fast)
+            emit(dict(phase="profile", view="origin", fast_fwd=fast,
+                      **profile_table(lambda: draw("origin", fast), origin_ms[fast])))
 
     # --- the training step at full width -----------------------------------
     gt = results[("origin", False)].image
     del results
+    tool_kernels.reset_launch_counts()
     train_calls, train_launches = phase_train(
         torch, kernels, random_scene, views["origin"], gt, dev)
+    main_launches["step"] = dict(tool_kernels.launch_counts)
+    if any(main_launches["views"].values()) or any(main_launches["step"].values()):
+        raise AssertionError(f"a tools kernel ran on the main path: {main_launches}")
+
+    # --- the profiling tools' path, the bench line and the stage profile ------
+    mid_params, mid_aux = random_scene(20_000, seed=1, spread=1.5, device=dev)
+    stream_mid = instance_stream(
+        mid_params, look_at_origin_camera(320, 240, device=dev),
+        RasterConfig(tile_size=32, max_instances=1 << 18, max_rows=1 << 16),
+        mid_aux.alive)
+    stream_bench = instance_stream(params, views["origin"], cfgs[False], aux.alive)
+    tools = phase_tools(torch, tool_kernels, stream_mid, stream_bench)
+    del stream_mid, mid_params, mid_aux
+
+    from gsjax_torch import bench, profile_stages
+
+    emit(dict(phase="bench", **bench.run(params, aux, views["origin"], cfgs[False])))
+    stages = profile_stages.profile(
+        profile_stages.Stages(params, aux, views["origin"], cfgs[False]))
+    emit(dict(phase="stages", **stages))
 
     # --- each kernel at the main path's shapes -------------------------------
     train_errs = check_backward_kernels(
@@ -755,6 +941,9 @@ def main() -> int:
             library_ms=library_ms, plain_source=PLAIN_SOURCE[name],
             event_ms=event_ms, bytes=nbytes, flops=flops, **extra,
         ))
+    fwd_entry = next(e for e in entries if e["name"] == "composite_forward")
+    entries += tool_entries(torch, tool_kernels, stream_bench, *tools, fwd_entry,
+                            main_launches)
     if not all(math.isfinite(e["ms"]) for e in entries):
         raise AssertionError("kernel timing failed")
     emit({"kernels": entries})

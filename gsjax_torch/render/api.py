@@ -18,6 +18,7 @@ from gsjax_torch.core.cameras import Camera
 from gsjax_torch.core.transforms import build_covariance
 from gsjax_torch.model import GaussianParams
 from gsjax_torch.render.binning import (
+    Binning,
     bin_gaussians,
     depth_order,
     num_tiles,
@@ -28,6 +29,7 @@ from gsjax_torch.render.composite import CompositeStatic, composite, pack_fields
 from gsjax_torch.render.oracle import composite_oracle
 from gsjax_torch.render.preprocess import (
     NEAR_CULL_Z,
+    Projected,
     preprocess,
     project_points,
     sh_to_rgb,
@@ -49,6 +51,37 @@ class RenderOutput:
     @property
     def visibility_filter(self) -> torch.Tensor:
         return self.radii > 0
+
+
+def depth_sorted_bins(
+    proj: Projected, camera: Camera, cfg: RasterConfig
+) -> tuple[torch.Tensor, Binning]:
+    """The composite's [N, 9] fields in depth order and the frame's
+    binning. One N-rate depth permute serves both consumers: columns 0..8
+    are the composite fields (pack_fields layout), 9..11 binning's
+    ext/qmax."""
+    perm = depth_order(proj.depth)
+    fields12 = torch.cat(
+        [
+            pack_fields(proj.mean_pix, proj.conic, proj.rgb, proj.opacity),
+            proj.ext,
+            proj.qmax[:, None],
+        ],
+        dim=-1,
+    )
+    f12 = permute_rows(fields12, perm)
+    binning = bin_gaussians(
+        f12[:, 0:2],
+        proj.depth,
+        f12[:, 9:11],
+        f12[:, 2:5],
+        f12[:, 11],
+        camera.height,
+        camera.width,
+        cfg,
+        perm=perm,
+    )
+    return f12[:, 0:9], binning
 
 
 def _check_devices(params: GaussianParams, camera: Camera, **optional) -> None:
@@ -121,29 +154,7 @@ def render(
         rgb_precomp=rgb_pre,
     )
 
-    # One N-rate depth permute for both consumers: columns 0..8 are the
-    # composite fields (pack_fields layout), 9..11 binning's ext/qmax.
-    perm = depth_order(proj.depth)
-    fields12 = torch.cat(
-        [
-            pack_fields(proj.mean_pix, proj.conic, proj.rgb, proj.opacity),
-            proj.ext,
-            proj.qmax[:, None],
-        ],
-        dim=-1,
-    )
-    f12 = permute_rows(fields12, perm)
-    binning = bin_gaussians(
-        f12[:, 0:2],
-        proj.depth,
-        f12[:, 9:11],
-        f12[:, 2:5],
-        f12[:, 11],
-        camera.height,
-        camera.width,
-        cfg,
-        perm=perm,
-    )
+    fields, binning = depth_sorted_bins(proj, camera, cfg)
 
     tiles_x, tiles_y = num_tiles(camera.height, camera.width, cfg.tw, cfg.th)
     static = CompositeStatic(
@@ -155,7 +166,7 @@ def render(
         strips=cfg.strips,
         fast_fwd=cfg.fast_fwd,
     )
-    tile_color, tile_t = composite(f12[:, 0:9], binning, static)
+    tile_color, tile_t = composite(fields, binning, static)
     color, transmittance = untile_image(
         tile_color, tile_t, camera.height, camera.width, tiles_x, tiles_y,
         cfg.tw, cfg.th,

@@ -45,6 +45,27 @@ def _geometry(static: CompositeStatic) -> dict:
     )
 
 
+def composite_cotangent(d_color, d_t, tile_color, tile_t) -> torch.Tensor:
+    """The backward kernel's per-pixel cotangent (T, PIX, 4): the color
+    cotangent and the initial suffix A'_0 = sum_ch dC * C_total + dT *
+    T_final, one 16-byte row per pixel."""
+    suffix0 = torch.sum(d_color * tile_color, dim=-1) + d_t * tile_t
+    return torch.cat([d_color, suffix0[..., None]], dim=-1).contiguous()
+
+
+def owner_sums(inst_grads, sorted_slot, gm_start) -> torch.Tensor:
+    """Per-Gaussian [N, N_FIELDS] sums of the tile-order instance gradients
+    (P, ROWS). sorted_slot maps each tile-order slot to its expansion-order
+    slot and is a permutation, so its inverse is one collision-free
+    scatter; one row gather then regroups the grads by owner, and
+    segment_sum adds each owner's run."""
+    slot = sorted_slot.long()
+    inverse = torch.empty_like(slot)
+    inverse[slot] = torch.arange(slot.shape[0], device=slot.device)
+    vals = inst_grads.index_select(0, inverse)
+    return kernels.segment_sum(vals, gm_start)[:, :N_FIELDS]
+
+
 class _Composite(torch.autograd.Function):
     @staticmethod
     def forward(ctx, fields, sorted_owner, tile_start, sorted_slot, gm_start,
@@ -72,22 +93,12 @@ class _Composite(torch.autograd.Function):
         inst, tile_start, sorted_slot, gm_start, tile_color, tile_t = (
             ctx.saved_tensors
         )
-        # Per-pixel initial suffix A'_0 = sum_ch dC * C_total + dT * T_final,
-        # packed with the color cotangent as one 16-byte row per pixel.
-        suffix0 = torch.sum(d_color * tile_color, dim=-1) + d_t * tile_t
-        cot = torch.cat([d_color, suffix0[..., None]], dim=-1).contiguous()
+        cot = composite_cotangent(d_color, d_t, tile_color, tile_t)
         inst_grads = kernels.composite_backward(
             inst, tile_start, cot, **_geometry(static)
         )
-        # sorted_slot maps each tile-order slot to its expansion-order slot
-        # and is a permutation, so its inverse is one collision-free
-        # scatter; one row gather then regroups the grads by owner.
-        slot = sorted_slot.long()
-        inverse = torch.empty_like(slot)
-        inverse[slot] = torch.arange(slot.shape[0], device=slot.device)
-        vals = inst_grads.index_select(0, inverse)
-        sums = kernels.segment_sum(vals, gm_start)
-        return sums[:, :N_FIELDS], None, None, None, None, None
+        d_fields = owner_sums(inst_grads, sorted_slot, gm_start)
+        return d_fields, None, None, None, None, None
 
 
 def composite(

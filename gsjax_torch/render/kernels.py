@@ -10,10 +10,11 @@ its backward (gsjax/render/pallas_kernels.py):
   composite_backward  <- composite_backward_pallas  (csrc/composite_backward.cu)
   segment_sum         <- segment_sum_pallas         (csrc/segment_sum.cu)
 
-The two composite kernels take their walk's arithmetic from the same
-helpers (csrc/composite_walk.cuh) and are built with the same flags, so
-the backward replays the forward's skip and termination decisions bit for
-bit.
+The two composite kernels take their walks from the same header
+(csrc/composite_walk.cuh) and are built with the same flags, so the
+backward replays the forward's skip and termination decisions bit for bit.
+The library also holds the profiling tools' kernels (row_gather.cu,
+composite_probes.cu), whose wrappers are in gsjax_torch/tools/kernels.py.
 
 Each wrapper dispatches on the device of its tensors: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version of the
@@ -60,6 +61,8 @@ SOURCES = {
     "row_engine.cu": ("--fmad=false",),
     "rank_prefix.cu": (),
     "segment_sum.cu": (),
+    "row_gather.cu": (),
+    "composite_probes.cu": (),
 }
 
 KERNEL_NAMES = (
@@ -144,7 +147,7 @@ def build_log() -> str:
     return (BUILD_ROOT / _build_key() / "build.log").read_text()
 
 
-def _library() -> ctypes.CDLL:
+def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
@@ -156,13 +159,18 @@ def _library() -> ctypes.CDLL:
         ]
         lib.gsjt_rank_prefix.argtypes = [p, i, p, i, i, i, p, p]
         lib.gsjt_segment_sum.argtypes = [p, p, p, i, p]
-        for name in KERNEL_NAMES:
+        # The profiling tools' kernels (gsjax_torch/tools/kernels.py).
+        lib.gsjt_row_gather.argtypes = [p, p, i, p, i, i, p]
+        lib.gsjt_outpath.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.gsjt_blockout.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.gsjt_variant.argtypes = [p, i, p, p, p, i, i, i, i, i, ctypes.c_float, p]
+        for name in (*KERNEL_NAMES, "row_gather", "outpath", "blockout", "variant"):
             getattr(lib, f"gsjt_{name}").restype = ctypes.c_int
         _lib = lib
     return _lib
 
 
-def _stream() -> int:
+def current_stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
@@ -172,7 +180,7 @@ def _check(name: str, err: int) -> None:
     launch_counts[name] += 1
 
 
-def _route(name: str, *tensors: torch.Tensor) -> bool:
+def route(name: str, *tensors: torch.Tensor) -> bool:
     """True for the kernel (all CUDA tensors on one card), False for the
     plain version (all CPU tensors); raises otherwise."""
     devices = {t.device for t in tensors}
@@ -184,7 +192,7 @@ def _route(name: str, *tensors: torch.Tensor) -> bool:
     return dev.type == "cuda"
 
 
-def _require(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
+def require(name: str, t: torch.Tensor, dtype: torch.dtype, shape) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
@@ -216,8 +224,9 @@ def _f2i(x: torch.Tensor) -> torch.Tensor:
 
 composite_forward_plain = tiled.composite_tiles
 
-# The kernel runs one thread per pixel, one block per tile.
-MAX_TILE_PIXELS = 1024
+# One block per tile: one thread per pixel up to 1024 pixels, and up to
+# four pixels per thread above (csrc/composite_walk.cuh), so 64x64 tiles.
+MAX_TILE_PIXELS = 4096
 
 
 def composite_forward(
@@ -237,21 +246,21 @@ def composite_forward(
     Returns tile_color (n_tiles, PIX, 3) and tile_t (n_tiles, PIX) f32.
     `chunk` and `strips` shape only the plain walk, never the output.
     """
-    if not _route("composite_forward", inst, tile_start):
+    if not route("composite_forward", inst, tile_start):
         return composite_forward_plain(
             inst, tile_start, n_tiles=n_tiles, tiles_x=tiles_x, tile_w=tile_w,
             tile_h=tile_h, chunk=chunk, strips=strips,
         )
-    pix = _tile_pixels("composite_forward", tile_w, tile_h)
-    _require("composite_forward inst", inst, torch.float32, (inst.shape[0], 16))
-    _require("composite_forward tile_start", tile_start, torch.int32, (n_tiles + 1,))
+    pix = tile_pixels("composite_forward", tile_w, tile_h)
+    require("composite_forward inst", inst, torch.float32, (inst.shape[0], 16))
+    require("composite_forward tile_start", tile_start, torch.int32, (n_tiles + 1,))
     tile_color = torch.empty((n_tiles, pix, 3), dtype=torch.float32, device=inst.device)
     tile_t = torch.empty((n_tiles, pix), dtype=torch.float32, device=inst.device)
     if n_tiles == 0:
         return tile_color, tile_t
-    err = _library().gsjt_composite_forward(
+    err = library().gsjt_composite_forward(
         inst.data_ptr(), tile_start.data_ptr(), tile_color.data_ptr(),
-        tile_t.data_ptr(), n_tiles, tiles_x, tile_w, tile_h, _stream(),
+        tile_t.data_ptr(), n_tiles, tiles_x, tile_w, tile_h, current_stream(),
     )
     _check("composite_forward", err)
     return tile_color, tile_t
@@ -282,33 +291,35 @@ def composite_backward(
     [dmx, dmy, dca, dcb, dcc, dr, dg, db, dop, 0...]; rows no tile walk
     reaches are zero. `chunk` and `strips` shape only the plain walk.
     """
-    if not _route("composite_backward", inst, tile_start, cot):
+    if not route("composite_backward", inst, tile_start, cot):
         return composite_backward_plain(
             inst, tile_start, cot, n_tiles=n_tiles, tiles_x=tiles_x,
             tile_w=tile_w, tile_h=tile_h, chunk=chunk, strips=strips,
         )
-    pix = _tile_pixels("composite_backward", tile_w, tile_h)
-    _require("composite_backward inst", inst, torch.float32, (inst.shape[0], 16))
-    _require("composite_backward tile_start", tile_start, torch.int32, (n_tiles + 1,))
-    _require("composite_backward cot", cot, torch.float32, (n_tiles, pix, 4))
+    pix = tile_pixels("composite_backward", tile_w, tile_h)
+    require("composite_backward inst", inst, torch.float32, (inst.shape[0], 16))
+    require("composite_backward tile_start", tile_start, torch.int32, (n_tiles + 1,))
+    require("composite_backward cot", cot, torch.float32, (n_tiles, pix, 4))
     # Zero-filled: the kernel writes only the rows its walks reach.
     grads = torch.zeros_like(inst)
     if n_tiles == 0:
         return grads
-    err = _library().gsjt_composite_backward(
+    err = library().gsjt_composite_backward(
         inst.data_ptr(), tile_start.data_ptr(), cot.data_ptr(),
-        grads.data_ptr(), n_tiles, tiles_x, tile_w, tile_h, _stream(),
+        grads.data_ptr(), n_tiles, tiles_x, tile_w, tile_h, current_stream(),
     )
     _check("composite_backward", err)
     return grads
 
 
-def _tile_pixels(name: str, tile_w: int, tile_h: int) -> int:
+def tile_pixels(name: str, tile_w: int, tile_h: int) -> int:
+    """Pixels of a tile the composite walks (csrc/composite_walk.cuh)
+    take; raises ValueError above MAX_TILE_PIXELS."""
     pix = tile_w * tile_h
     if pix > MAX_TILE_PIXELS:
         raise ValueError(
-            f"{name}: tiles of {pix} pixels exceed the kernel's "
-            f"{MAX_TILE_PIXELS}"
+            f"{name}: tiles of {pix} pixels exceed the kernels' "
+            f"{MAX_TILE_PIXELS} (64x64)"
         )
     return pix
 
@@ -336,16 +347,16 @@ def segment_sum(vals: torch.Tensor, gm_start: torch.Tensor) -> torch.Tensor:
     vals (P, 16) f32 rows grouped into ascending-owner runs; gm_start
     (N + 1,) int32 run boundaries within [0, P]. Returns (N, 16) f32.
     """
-    if not _route("segment_sum", vals, gm_start):
+    if not route("segment_sum", vals, gm_start):
         return segment_sum_plain(vals, gm_start)
-    _require("segment_sum vals", vals, torch.float32, (vals.shape[0], 16))
+    require("segment_sum vals", vals, torch.float32, (vals.shape[0], 16))
     n = gm_start.shape[0] - 1
-    _require("segment_sum gm_start", gm_start, torch.int32, (n + 1,))
+    require("segment_sum gm_start", gm_start, torch.int32, (n + 1,))
     out = torch.empty((n, 16), dtype=torch.float32, device=vals.device)
     if n == 0:
         return out
-    err = _library().gsjt_segment_sum(
-        vals.data_ptr(), gm_start.data_ptr(), out.data_ptr(), n, _stream(),
+    err = library().gsjt_segment_sum(
+        vals.data_ptr(), gm_start.data_ptr(), out.data_ptr(), n, current_stream(),
     )
     _check("segment_sum", err)
     return out
@@ -395,25 +406,25 @@ def rank_prefix(
     int32 holding the uint32 results.
     """
     extra = () if dcum is None else (dcum,)
-    if not _route("rank_prefix", start, delta, *extra):
+    if not route("rank_prefix", start, delta, *extra):
         return rank_prefix_plain(
             start, delta, budget=budget, plus_iota=plus_iota, init=init,
             dcum=dcum,
         )
     r = start.shape[0]
-    _require("rank_prefix start", start, torch.int32, (r,))
-    _require("rank_prefix delta", delta, torch.int32, (r,))
+    require("rank_prefix start", start, torch.int32, (r,))
+    require("rank_prefix delta", delta, torch.int32, (r,))
     if dcum is None:
         # R-rate, outside the kernel, as the reference wrapper does.
         dcum = torch.cumsum(delta.to(torch.int64) & _M32, dim=0)
         dcum = _as_i32(dcum)
-    _require("rank_prefix dcum", dcum, torch.int32, (r,))
+    require("rank_prefix dcum", dcum, torch.int32, (r,))
     out = torch.empty(budget, dtype=torch.int32, device=start.device)
     if budget == 0:
         return out
-    err = _library().gsjt_rank_prefix(
+    err = library().gsjt_rank_prefix(
         start.data_ptr(), r, dcum.data_ptr(), budget, init, int(plus_iota),
-        out.data_ptr(), _stream(),
+        out.data_ptr(), current_stream(),
     )
     _check("rank_prefix", err)
     return out
@@ -540,14 +551,14 @@ def row_engine(
     table (16, N) int32 with the TAB_* columns; total_rows [] int32, the
     true (unclamped) row count.
     """
-    if not _route("row_engine", table, total_rows):
+    if not route("row_engine", table, total_rows):
         return row_engine_plain(
             table, total_rows, budget=budget, tiles_x=tiles_x, tile_w=tile_w,
             tile_h=tile_h, bits_tile=bits_tile,
         )
     n = table.shape[1]
-    _require("row_engine table", table, torch.int32, (16, n))
-    _require("row_engine total_rows", total_rows, torch.int32, ())
+    require("row_engine table", table, torch.int32, (16, n))
+    require("row_engine total_rows", total_rows, torch.int32, ())
     dev = table.device
     istart, delta, u = (
         torch.empty(budget, dtype=torch.int32, device=dev) for _ in range(3)
@@ -559,11 +570,11 @@ def row_engine(
     counts = torch.empty(budget, dtype=torch.int32, device=dev)
     packed = torch.empty(budget, dtype=torch.int32, device=dev)
     block_sums = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    err = _library().gsjt_row_engine(
+    err = library().gsjt_row_engine(
         table.data_ptr(), n, total_rows.data_ptr(), budget, tiles_x, tile_w,
         tile_h, bits_tile, counts.data_ptr(), packed.data_ptr(),
         block_sums.data_ptr(), istart.data_ptr(), delta.data_ptr(),
-        u.data_ptr(), total.data_ptr(), _stream(),
+        u.data_ptr(), total.data_ptr(), current_stream(),
     )
     _check("row_engine", err)
     return istart, delta, u, total

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+the render path's (render/kernels.py, tiles up to 64x64) and the profiling
+tools' (tools/kernels.py).
 
 Needs an NVIDIA GPU and nvcc: every test is marked `cuda` and skips
 without a card. This file imports no JAX, so on a machine without JAX it
@@ -21,6 +23,8 @@ from gsjax_torch.model import PARAM_NAMES
 from gsjax_torch.render import kernels
 from gsjax_torch.render.api import render
 from gsjax_torch.synthetic import look_at_origin_camera, random_scene
+from gsjax_torch.tools import kernels as tool_kernels
+from gsjax_torch.tools.common import instance_stream
 
 torch.set_num_threads(1)
 pytestmark = pytest.mark.cuda
@@ -89,6 +93,8 @@ CFGS = {
     "16x16": RasterConfig(tile_size=16, max_instances=1 << 14, max_rows=1 << 13),
     "32x16": RasterConfig(tile_w=32, tile_h=16, max_instances=1 << 14, max_rows=1 << 13),
     "overflow": RasterConfig(tile_size=16, max_instances=1024, max_rows=512),
+    "64x32": RasterConfig(tile_w=64, tile_h=32, max_instances=1 << 14, max_rows=1 << 13),
+    "64x64": RasterConfig(tile_w=64, tile_h=64, max_instances=1 << 14, max_rows=1 << 13),
 }
 
 
@@ -123,7 +129,7 @@ def test_rank_prefix_wraparound(card, plus_iota, init):
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
-@pytest.mark.parametrize("cfg", ["16x16", "32x16"])
+@pytest.mark.parametrize("cfg", ["16x16", "32x16", "64x32", "64x64"])
 def test_composite_forward_matches_plain(card, cfg, monkeypatch):
     calls = _record(monkeypatch, "composite_forward")
     _cpu_render(CFGS[cfg])
@@ -135,7 +141,7 @@ def test_composite_forward_matches_plain(card, cfg, monkeypatch):
     np.testing.assert_allclose(got_t.cpu().numpy(), want_t.numpy(), atol=2e-3)
 
 
-@pytest.mark.parametrize("cfg", ["16x16", "32x16", "overflow"])
+@pytest.mark.parametrize("cfg", ["16x16", "32x16", "overflow", "64x32", "64x64"])
 def test_composite_backward_and_segment_sum_match_plain(card, cfg, monkeypatch):
     backs = _record(monkeypatch, "composite_backward")
     sums = _record(monkeypatch, "segment_sum")
@@ -176,3 +182,64 @@ def test_render_on_card_matches_cpu(card):
     )
     for k in PARAM_NAMES:
         _scaled_close(grads[k], cpu_grads[k], what=k)
+
+
+# --- the profiling tools' kernels ---------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tool_stream():
+    """The composite's inputs for a 1500-Gaussian 160x120 view in 32x32
+    tiles, built on the CPU."""
+    params, aux = random_scene(1500, seed=3, spread=1.5, device="cpu")
+    cam = look_at_origin_camera(W, H, device="cpu")
+    cfg = RasterConfig(tile_size=32, max_instances=1 << 14, max_rows=1 << 13)
+    return instance_stream(params, cam, cfg, aux.alive)
+
+
+@pytest.mark.parametrize("name", tool_kernels.VARIANTS)
+def test_variant_matches_plain(card, tool_stream, name):
+    geo = tool_stream.geometry
+    want = tool_kernels.variant_plain(tool_stream.inst, tool_stream.tile_start,
+                                      name, **geo)
+    got = tool_kernels.variant(tool_stream.inst.to(card),
+                               tool_stream.tile_start.to(card), name, **geo).cpu()
+    if name == "dma_only":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6)
+    elif name == "bwd_nowrite":
+        cot = tool_kernels.bwd_nowrite_cot(geo["n_tiles"], 1024, "cpu")
+        grads = kernels.composite_backward_plain(
+            tool_stream.inst, tool_stream.tile_start, cot, **geo)
+        # Within 5e-3 of the stream's largest |d_mx|.
+        scale = float(grads[:, 0].abs().max())
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=5e-3 * scale)
+    else:  # 2e-3 per chunk walked (fwd_nodep sums its chunks)
+        _, mask = tool_kernels._chunk_heads(tool_stream.tile_start, geo["n_tiles"])
+        np.testing.assert_allclose(got.numpy(), want.numpy(),
+                                   atol=2e-3 * int(mask.sum(1).max()))
+
+
+@pytest.mark.parametrize("variant", tool_kernels.OUTPATH_VARIANTS)
+def test_outpath_and_blockout_match_plain(card, tool_stream, variant):
+    geo = tool_stream.geometry
+    inst, ts = tool_stream.inst, tool_stream.tile_start
+    want = tool_kernels.outpath_plain(inst, ts, variant, **geo)
+    got = tool_kernels.outpath(inst.to(card), ts.to(card), variant, **geo).cpu()
+    if variant == "ship":
+        np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-3)
+    else:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=0)
+    for want_x, got_x in zip(tool_kernels.blockout_plain(inst, ts, **geo),
+                             tool_kernels.blockout(inst.to(card), ts.to(card), **geo)):
+        np.testing.assert_allclose(got_x.cpu().numpy(), want_x.numpy(), atol=2e-3)
+
+
+@pytest.mark.parametrize("width", tool_kernels.GATHER_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_row_gather_matches_plain(card, width, dtype):
+    rng = np.random.default_rng(width)
+    src = torch.from_numpy(rng.standard_normal((5000, width)).astype(np.float32))
+    idx = torch.from_numpy(rng.integers(0, 5000, 12_345)).to(dtype)  # any P
+    want = tool_kernels.row_gather_plain(src, idx)
+    got = tool_kernels.row_gather(src.to(card), idx.to(card)).cpu()
+    assert torch.equal(got, want)
