@@ -25,24 +25,34 @@ Phases, one JSON line each (any failure exits non-zero):
   profile  device time by kernel over one render (torch.profiler)
   tiles    the composite kernels at 64x32 and 64x64 tiles (up to four
            pixels per thread) against their plain versions on the mid
-           scene (also in the oracle phase, at 64x32)
+           scene (also in the oracle phase, at 64x32); in every mid-scene
+           case the culled composite kernels equal their twins without the
+           cull bit for bit (the backward up to the sign of a zero)
   train    train_step() on the bench scene against the exact render of
            that scene, from a perturbed copy: 3 warm-up and 10 timed steps
            (loss per step, ms per step, pixels/s, host ms); all five
            kernels' launch counts over those steps; a profile of one step
-  tools    the profiling tools' four kernels (gsjax_torch/tools/kernels.py)
-           against their plain versions on the mid scene; then the tools'
-           own path, gsjax_torch.tools.{ablate_kernels, probe_outpath,
-           probe_prims}, on the bench origin view (one line per
-           measurement), with the four kernels' launch counts over it;
+  cull     at the bench origin view: for each warp shape (32x1, 16x2, 8x4)
+           the (instance, warp) pairs the exact walk visits, those the
+           cull keeps and those with a live pixel; the culled composite
+           kernels against their twins without the cull, bit for bit, on
+           the view's render and training step; each timed against its
+           twin in turns (twin, main, main, twin), profiler device time
+  tools    the profiling tools' kernels (gsjax_torch/tools/kernels.py:
+           the four probes and the two twins) against their plain
+           versions on the mid scene; then the tools' own path,
+           gsjax_torch.tools.{ablate_kernels, probe_outpath, probe_prims},
+           on the bench origin view (one line per measurement), with the
+           tools kernels' launch counts over it;
            then each kernel against its plain version at that view's own
            arguments (row_gather: the instance gather's (N,16) rows at P)
   bench    gsjax_torch.bench's JSON line on the bench scene
   stages   gsjax_torch.profile_stages' table on the bench scene
 Then the `kernels` line: for the forward kernels at the origin view's
 render, for the backward kernels at one training step, for the tools'
-kernels at the origin view's instance stream, each kernel's launches (over
-the training run; the tools' over their own path, with "path": "tools"
+kernels at the origin view's instance stream (the twins at the main
+kernels' arguments, their times from the cull phase), each kernel's
+launches (over the training run; the tools' over their own path, with "path": "tools"
 and 0 launches per step and per view), its error against its plain
 version on those very arguments (max_abs_err; the kernels and tools
 phases' errors in mid_scene_max_abs_err), device time from the profiler,
@@ -91,6 +101,8 @@ PLAIN_SOURCE = {
     "outpath": "gsjax_torch/tools/kernels.py",
     "blockout": "gsjax_torch/tools/kernels.py",
     "variant": "gsjax_torch/tools/kernels.py",
+    "composite_forward_nocull": "gsjax_torch/render/tiled.py",
+    "composite_backward_nocull": "gsjax_torch/render/tiled.py",
 }
 REPLACES = {
     "composite_forward": "gsjax/render/pallas_kernels.py:220",
@@ -102,6 +114,9 @@ REPLACES = {
     "outpath": "tools/probe_outpath.py:91",
     "blockout": "tools/ablate_kernels.py:121",
     "variant": "tools/ablate_kernels.py:257",
+    # The twins replace the same TPU kernels as the main kernels they mirror.
+    "composite_forward_nocull": "gsjax/render/pallas_kernels.py:220",
+    "composite_backward_nocull": "gsjax/render/pallas_kernels.py:1153",
 }
 SOURCES = {
     "composite_forward": "gsjax_torch/csrc/composite_forward.cu",
@@ -113,6 +128,8 @@ SOURCES = {
     "outpath": "gsjax_torch/csrc/composite_probes.cu",
     "blockout": "gsjax_torch/csrc/composite_probes.cu",
     "variant": "gsjax_torch/csrc/composite_probes.cu",
+    "composite_forward_nocull": "gsjax_torch/csrc/composite_probes.cu",
+    "composite_backward_nocull": "gsjax_torch/csrc/composite_probes.cu",
 }
 # Names of each wrapper's CUDA kernels, as the profiler reports them.
 DEVICE_KERNELS = {
@@ -125,7 +142,11 @@ DEVICE_KERNELS = {
     "outpath": "outpath_kernel",
     "blockout": "blockout_kernel",
     "variant": "variant_",
+    "composite_forward_nocull": "nocull_forward_kernel",
+    "composite_backward_nocull": "nocull_backward_kernel",
 }
+# The warp shapes the cull phase counts, by warp width (32x1, 16x2, 8x4).
+WARP_WIDTHS = (32, 16, 8)
 BACKWARD_KERNELS = ("composite_backward", "segment_sum")
 FORWARD_KERNELS = ("composite_forward", "row_engine", "rank_prefix")
 
@@ -248,7 +269,10 @@ def mid_scene_checks(torch, kernels, render, RasterConfig, random_scene,
     """Each kernel against its plain version on the arguments of a
     20k-Gaussian 320x240 render and its backward (16x16, 32x32 and an
     overflowing budget); at 64x32 and 64x64 tiles (the tiles phase), where
-    the composite kernels give each thread two and four pixels."""
+    the composite kernels give each thread two and four pixels. In each
+    case the composite kernels equal their twins without the cull."""
+    from gsjax_torch.tools import kernels as tool_kernels
+
     params, aux = random_scene(20_000, seed=1, spread=1.5, device=dev)
     cam = look_at_origin_camera(320, 240, device=dev)
     cases = {
@@ -287,6 +311,9 @@ def mid_scene_checks(torch, kernels, render, RasterConfig, random_scene,
         line["composite_forward"] = e
         for name, (_, e) in check_backward_kernels(kernels, rec.calls, errs, case).items():
             line[name] = e
+        line["twins"] = check_twins(torch, kernels, tool_kernels,
+                                    rec.calls["composite_forward"],
+                                    rec.calls["composite_backward"], case)
         line["launches"] = dict(kernels.launch_counts)  # render + comparisons
         emit(line)
 
@@ -421,12 +448,18 @@ def phase_oracle(torch, render, render_oracle, RasterConfig, random_scene,
         emit(line)
 
 
-def composite_pairs(torch, inst, tile_start, *, n_tiles, tiles_x, tile_w, tile_h):
+def composite_pairs(torch, inst, tile_start, *, n_tiles, tiles_x, tile_w, tile_h,
+                    warp_widths=()):
     """(instance, pixel) pairs the exact composite must evaluate: per pixel,
     its tile's instances up to and including the one that terminates it;
     and the live pairs among them, those that contribute (and so carry
     gradient terms in the backward). The termination rule is the plain
-    walk's (tiled.exact_step). Returns (evaluated, live)."""
+    walk's (tiled.exact_step). For each warp width w of `warp_widths`, the
+    (instance, warp) pairs of the warp map of w x (32 / w) blocks: those
+    the walk visits (a pixel of the warp evaluates the instance), those of
+    them the cull keeps (tiled.warp_keep) and those with a live pixel;
+    raises if the cull drops a live pair. Returns (evaluated, live,
+    {"WxH": {"visited", "kept", "live"}})."""
     from gsjax_torch.render import tiled
     from gsjax_torch.render.common import tile_pixel_coords
 
@@ -434,10 +467,13 @@ def composite_pairs(torch, inst, tile_start, *, n_tiles, tiles_x, tile_w, tile_h
     i0, i1 = tile_start[:-1].long(), tile_start[1:].long()
     lanes = torch.arange(chunk, device=dev)
     total = live_total = 0
+    maps = {w: tiled.warp_pixels(tile_w, tile_h, w, device=dev) for w in warp_widths}
+    warps = {w: dict(visited=0, kept=0, live=0) for w in warp_widths}
     batch = max(1, (1 << 25) // (pix * chunk))
     for t0 in range(0, n_tiles, batch):
         t1 = min(n_tiles, t0 + batch)
         px, py = tile_pixel_coords(torch.arange(t0, t1, device=dev), tiles_x, tile_w, tile_h)
+        rects = {w: tiled.warp_rects(px, py, wp) for w, wp in maps.items()}
         px, py = px[..., None], py[..., None]
         t_cur = torch.ones((t1 - t0, pix, 1), device=dev)
         done = torch.zeros((t1 - t0, pix, 1), dtype=torch.bool, device=dev)
@@ -449,22 +485,71 @@ def composite_pairs(torch, inst, tile_start, *, n_tiles, tiles_x, tile_w, tile_h
             *_, alpha = tiled._chunk_falloff(f, px, py, mask)
             _, skip, _, t_cur_next = tiled.exact_step(t_cur, done, alpha)
             before = torch.cat([done, skip[..., :-1]], dim=-1)  # done before lane
-            total += int((mask[:, None, :] & ~before).sum())
-            live_total += int((~skip & (alpha > 0)).sum())
+            evaluated = mask[:, None, :] & ~before
+            live = ~skip & (alpha > 0)
+            total += int(evaluated.sum())
+            live_total += int(live.sum())
+            for w, wp in maps.items():
+                # (tb, W, 32, K) by the warp map, lanes without a pixel false.
+                lane_px = torch.where(wp >= 0, wp, pix)
+
+                def by_warp(x):
+                    pad = torch.zeros_like(x[:, :1])
+                    return torch.cat([x, pad], dim=1)[:, lane_px].any(dim=2)
+
+                visited, live_w = by_warp(evaluated), by_warp(live)
+                keep = tiled.warp_keep(f, rects[w])
+                if bool((live_w & ~keep).any()):
+                    raise AssertionError(f"cull: a live pair is culled ({w}-wide warps)")
+                warps[w]["visited"] += int(visited.sum())
+                warps[w]["kept"] += int((visited & keep).sum())
+                warps[w]["live"] += int(live_w.sum())
             t_cur, done = t_cur_next, skip[..., -1:]
-    return total, live_total
+    shapes = {f"{w}x{32 // w}": counts for w, counts in warps.items()}
+    return total, live_total, shapes
+
+
+def check_twins(torch, kernels, tool_kernels, fwd_call, bwd_call, where):
+    """The culled composite kernels against their twins without the cull
+    on recorded arguments: the forward's outputs bit for bit, the
+    backward's gradients equal in value (bit for bit but the sign of a
+    zero). Raises otherwise."""
+    def differs(name, got, want):
+        bad = got.view(torch.int32) != want.view(torch.int32)
+        first = bad.nonzero()[:4].tolist()
+        raise AssertionError(
+            f"{where}: {name} differs from its twin at {int(bad.sum())} elements "
+            f"(first {first}), by up to {float((got - want).abs().max())}")
+
+    args, kw = fwd_call
+    with torch.no_grad():
+        got = kernels.composite_forward(*args, **kw)
+        want = tool_kernels.composite_forward_nocull(*args, **kw)
+    for g, w in zip(got, want):
+        if not torch.equal(g.view(torch.int32), w.view(torch.int32)):
+            differs("composite_forward", g, w)
+    args, kw = bwd_call
+    got = kernels.composite_backward(*args, **kw)
+    want = tool_kernels.composite_backward_nocull(*args, **kw)
+    if not torch.equal(got, want):
+        differs("composite_backward", got, want)
+    return {"forward_bitwise": True, "backward_equal": True,
+            "backward_bitwise": torch.equal(got.view(torch.int32), want.view(torch.int32))}
 
 
 def check_tool_kernels(torch, tool_kernels, stream, where):
-    """The profiling tools' four kernels against their plain versions on
-    one instance stream (tools/common.InstanceStream): row_gather on the
+    """The profiling tools' kernels against their plain versions on one
+    instance stream (tools/common.InstanceStream): row_gather on the
     instance gather's own (N,16) rows at P with int32 and int64 indices,
     exactly; outpath and blockout (both variants, both semantics) within
     the forward's 2e-3, the notrans block sum within rtol 1e-5 of its 4 PIX
     summed values (the rest of the block exactly 0); each ablation variant
     as tests/test_torch_tools.py holds it (dma_only rtol 1e-6, the walks
-    2e-3 per chunk summed, bwd_nowrite 5e-3 of the largest |d_mx|).
-    Returns {kernel: max abs error} and the variants' errors."""
+    2e-3 per chunk summed, the backward variants 5e-3 of the largest |d_mx|
+    of their cotangent); the twins without the cull as the main kernels
+    (2e-3; 5e-3 of each gradient column's largest, on the backward
+    variants' cotangent). Returns {kernel: max abs error} and the variants'
+    errors."""
     from gsjax_torch.render import kernels
     from gsjax_torch.render.common import N_FIELDS, ROWS
 
@@ -501,21 +586,35 @@ def check_tool_kernels(torch, tool_kernels, stream, where):
         _, mask = tool_kernels._chunk_heads(ts, geo["n_tiles"])
         max_chunks = int(mask.sum(1).max())
         cot = tool_kernels.bwd_nowrite_cot(geo["n_tiles"], pix, inst.device)
-        d_mx = float(kernels.composite_backward(inst, ts, cot, **geo)[:, 0].abs().max())
+        d_mx = {v: float(kernels.composite_backward(inst, ts, c, **geo)[:, 0].abs().max())
+                for v, c in (("bwd_nowrite", cot), ("bwd_noshfl", tool_kernels.lane0_cot(
+                    geo["n_tiles"], geo["tile_w"], geo["tile_h"], inst.device)))}
         for name in tool_kernels.VARIANTS:
             got = tool_kernels.variant(inst, ts, name, **geo)
             want = tool_kernels.variant_plain(inst, ts, name, **geo)
             e = max_err(got, want)
             if name == "dma_only":
                 ok = bool(((got - want).abs() <= 1e-6 * want.abs()).all())
-            elif name == "bwd_nowrite":
-                ok = e <= 5e-3 * d_mx
+            elif name in d_mx:
+                ok = e <= 5e-3 * d_mx[name]
             else:
                 ok = e <= 2e-3 * (max_chunks if name == "fwd_nodep" else 1)
             if not ok:
                 raise AssertionError(f"{where}: variant {name} error {e}")
             variant_errs[name] = e
         errs["variant"] = max(variant_errs.values())
+
+        e = max_err(tool_kernels.composite_forward_nocull(inst, ts, **geo),
+                    tool_kernels.composite_forward_nocull_plain(inst, ts, **geo))
+        if not e <= 2e-3:
+            raise AssertionError(f"{where}: composite_forward_nocull error {e} > 2e-3")
+        errs["composite_forward_nocull"] = e
+    got = tool_kernels.composite_backward_nocull(inst, ts, cot, **geo)
+    want = tool_kernels.composite_backward_nocull_plain(inst, ts, cot, **geo)
+    rel = float(((got - want).abs() / want.abs().amax(dim=0).clamp(min=1e-8)).max())
+    if not rel <= 5e-3:
+        raise AssertionError(f"{where}: composite_backward_nocull error {rel} > 5e-3")
+    errs["composite_backward_nocull"] = float((got - want).abs().max())
     return errs, variant_errs
 
 
@@ -552,10 +651,51 @@ def phase_tools(torch, tool_kernels, stream_mid, stream_bench):
     return rows, launches, mid_errs, errs, variant_errs
 
 
+def phase_cull(torch, kernels, tool_kernels, origin_calls, train_calls):
+    """At the bench origin view: the (instance, warp) pair counts of each
+    warp shape on the view's render (composite_pairs); the culled composite
+    kernels against their twins on the view's render (forward) and
+    training step (backward); each kernel timed against its twin in turns
+    (twin, main, main, twin) by profiler device time. Returns the twins'
+    mean ms by kernel name."""
+    from gsjax_torch.tools.common import device_ms
+
+    args, kw = origin_calls["composite_forward"]
+    geo = {k: kw[k] for k in ("n_tiles", "tiles_x", "tile_w", "tile_h")}
+    t0 = time.perf_counter()
+    pairs, live, shapes = composite_pairs(torch, args[0], args[1], **geo,
+                                          warp_widths=WARP_WIDTHS)
+    for shape, c in shapes.items():
+        emit({"phase": "cull", "view": "origin", "warp": shape, **c,
+              "kept_share": c["kept"] / c["visited"],
+              "live_share": c["live"] / c["visited"]})
+    emit({"phase": "cull", "pairs_evaluated": pairs, "pairs_live": live,
+          "count_seconds": time.perf_counter() - t0,
+          "twins": check_twins(torch, kernels, tool_kernels,
+                               origin_calls["composite_forward"],
+                               train_calls["composite_backward"], "bench view")})
+    twin_ms = {}
+    for name, calls in (("composite_forward", origin_calls),
+                        ("composite_backward", train_calls)):
+        args, kw = calls[name]
+        main = getattr(kernels, name)
+        twin = getattr(tool_kernels, f"{name}_nocull")
+        with torch.no_grad():
+            def timed(fn, key):
+                return device_ms(lambda: fn(*args, **kw), DEVICE_KERNELS[key])
+
+            turns = [timed(twin, f"{name}_nocull"), timed(main, name),
+                     timed(main, name), timed(twin, f"{name}_nocull")]
+        twin_ms[f"{name}_nocull"] = (turns[0] + turns[3]) / 2
+        emit({"phase": "cull", "kernel": name, "turns": "twin, main, main, twin",
+              "ms": turns, "twin_over_main": (turns[0] + turns[3]) / (turns[1] + turns[2])})
+    return twin_ms
+
+
 def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
                  variant_errs, fwd_entry, main_launches):
-    """The `kernels` line's entries of the tools' four kernels at the bench
-    origin view: device and event ms from the tools' own run (`rows`),
+    """The `kernels` line's entries of the tools' four probe kernels at the
+    bench origin view: device and event ms from the tools' own run (`rows`),
     the plain versions timed here, bounds from this view's data (the
     composite's pairs are the forward entry's, counted on the same
     stream)."""
@@ -620,6 +760,49 @@ def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
                             max_abs_err=variant_errs[v]) for v in tool_kernels.VARIANTS},
           composite_forward_ms=timed["composite_forward"]["ms"],
           composite_backward_ms=timed["composite_backward"]["ms"])
+    return out
+
+
+def twin_entries(torch, tool_kernels, entries, origin_calls, train_calls,
+                 launches, mid_errs, twin_ms, main_launches):
+    """The `kernels` line's entries of the two twins without the cull, at
+    the main kernels' own arguments (the forward's at the origin view's
+    render, the backward's at one training step): device ms from the cull
+    phase's turns, their errors against the plain versions, and the main
+    kernels' bounds (the same work)."""
+    from gsjax_torch.tools.common import cuda_ms
+
+    out = []
+    for name, calls in (("composite_forward", origin_calls),
+                        ("composite_backward", train_calls)):
+        main = next(e for e in entries if e["name"] == name)
+        main["nocull_ms"] = twin_ms[f"{name}_nocull"]
+        twin_name = f"{name}_nocull"
+        twin = getattr(tool_kernels, twin_name)
+        plain = getattr(tool_kernels, f"{twin_name}_plain")
+        args, kw = calls[name]
+        with torch.no_grad():
+            got, want = twin(*args, **kw), plain(*args, **kw)
+            if name == "composite_forward":
+                err = max_err(got, want)
+                ok = err <= 2e-3
+            else:
+                diff = (got - want).abs()
+                err = float(diff.max())
+                ok = float((diff / want.abs().amax(dim=0).clamp(min=1e-8)).max()) <= 5e-3
+            if not ok:
+                raise AssertionError(f"main path: {twin_name} differs from plain by {err}")
+            event_ms = cuda_ms(lambda: twin(*args, **kw), reps=20, warmup=2)
+            plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=2)
+        out.append(dict(
+            name=twin_name, route="cuda", source=SOURCES[twin_name],
+            replaces=REPLACES[twin_name], launches=launches[twin_name], path="tools",
+            step_launches=main_launches["step"][twin_name],
+            view_run_launches=main_launches["views"][twin_name], max_abs_err=err,
+            mid_scene_max_abs_err=mid_errs[twin_name], ms=twin_ms[twin_name],
+            plain_ms=plain_ms, bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+            library_ms=None, plain_source=PLAIN_SOURCE[twin_name], event_ms=event_ms,
+            bytes=main["bytes"], flops=main["flops"], main_ms=main["ms"]))
     return out
 
 
@@ -836,6 +1019,9 @@ def main() -> int:
     if any(main_launches["views"].values()) or any(main_launches["step"].values()):
         raise AssertionError(f"a tools kernel ran on the main path: {main_launches}")
 
+    # --- the cull: warp counts, the twins, main against twin in turns ---------
+    twin_ms = phase_cull(torch, kernels, tool_kernels, origin_calls, train_calls)
+
     # --- the profiling tools' path, the bench line and the stage profile ------
     mid_params, mid_aux = random_scene(20_000, seed=1, spread=1.5, device=dev)
     stream_mid = instance_stream(
@@ -885,7 +1071,7 @@ def main() -> int:
             inst, tile_start = args[:2]
             n_inst = int(tile_start[-1])
             pix = kw["tile_w"] * kw["tile_h"]
-            pairs, live = composite_pairs(
+            pairs, live, _ = composite_pairs(
                 torch, inst, tile_start, n_tiles=kw["n_tiles"], tiles_x=kw["tiles_x"],
                 tile_w=kw["tile_w"], tile_h=kw["tile_h"],
             )
@@ -944,6 +1130,8 @@ def main() -> int:
     fwd_entry = next(e for e in entries if e["name"] == "composite_forward")
     entries += tool_entries(torch, tool_kernels, stream_bench, *tools, fwd_entry,
                             main_launches)
+    entries += twin_entries(torch, tool_kernels, entries, origin_calls, train_calls,
+                            tools[1], tools[2], twin_ms, main_launches)
     if not all(math.isfinite(e["ms"]) for e in entries):
         raise AssertionError("kernel timing failed")
     emit({"kernels": entries})

@@ -39,11 +39,20 @@
 // cumsums, render/tiled.py::composite_backward_tiles) they agree within a
 // per-row scaled 5e-3, the tolerance the JAX package holds its own
 // backward to.
+// The cull: each warp covers an 8x4 block of pixels (the warp map) and,
+// before walking a batch, drops the rows whose footprint box misses its
+// block (one ballot for the batch's 32 rows), so a Gaussian costs only the
+// warps it can reach: their steps, votes, butterflies and partials. A warp
+// stores a partial only for a row one of its pixels took, and marks it in
+// a per-row warp mask; the after-batch pass sums only the marked partials,
+// in warp order. The culled rows are ones every pixel of the warp skips,
+// so the gradients are bitwise those of the walk without the cull.
 // The block leaves once every pixel is done, as the forward does. Rows it
 // never reaches, and every slot past the last tile's range, are left to
 // the caller's zero-filled output. The walk itself is gsjt::backward_tile
-// (composite_walk.cuh), which the bwd_nowrite probe of composite_probes.cu
-// instantiates without the write.
+// (composite_walk.cuh), which composite_probes.cu instantiates without the
+// write (bwd_nowrite), without the butterflies (bwd_noshfl) and without
+// the cull (the reference twin gsjt_composite_backward_nocull).
 
 #include <cuda_runtime.h>
 
@@ -51,15 +60,14 @@
 
 namespace {
 
-template <int PPT>
 __global__ void __launch_bounds__(1024)
 composite_backward_kernel(const float* __restrict__ inst,
                           const int* __restrict__ tile_start,
                           const float4* __restrict__ cot,
                           float* __restrict__ grads, int tiles_x, int tile_w,
-                          int tile_h) {
-  gsjt::backward_tile<PPT, true>(inst, tile_start, cot, grads, tiles_x,
-                                 tile_w, tile_h, 0.0f);
+                          int tile_h, int warp_w) {
+  gsjt::backward_tile<gsjt::kBackwardPpt, gsjt::kBackward, true>(
+      inst, tile_start, cot, grads, tiles_x, tile_w, tile_h, warp_w, 0.0f);
 }
 
 }  // namespace
@@ -74,13 +82,11 @@ extern "C" int gsjt_composite_backward(const float* inst,
                                        const float* cot, float* grads,
                                        int n_tiles, int tiles_x, int tile_w,
                                        int tile_h, void* stream) {
-  const int pix = tile_w * tile_h;
-  const int ppt = gsjt::pixels_per_thread(pix);
-  const int threads = gsjt::block_threads(pix, ppt);
-  return gsjt::launch_with_ppt(ppt, [&](auto kPpt) {
-    composite_backward_kernel<decltype(kPpt)::value>
-        <<<n_tiles, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-            inst, tile_start, reinterpret_cast<const float4*>(cot), grads,
-            tiles_x, tile_w, tile_h);
-  });
+  const int threads = gsjt::backward_threads(tile_w * tile_h);
+  if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  composite_backward_kernel<<<n_tiles, threads, gsjt::backward_smem(threads),
+                              static_cast<cudaStream_t>(stream)>>>(
+      inst, tile_start, reinterpret_cast<const float4*>(cot), grads, tiles_x,
+      tile_w, tile_h, gsjt::warp_map(tile_w, tile_h));
+  return static_cast<int>(cudaGetLastError());
 }

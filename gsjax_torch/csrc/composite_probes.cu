@@ -8,6 +8,8 @@
 //                                                        -> blockout_kernel
 //   tools/ablate_kernels.py::run_variant (_variant_kernel)
 //                                  -> variant_{dma,walk,bwd}_kernel
+// and the main composite kernels' reference twins, which have no TPU
+// counterpart: nocull_forward_kernel, nocull_backward_kernel.
 //
 // What bounds them on this card: what bounds the kernel each one ablates,
 // arithmetic for the walks (composite_forward.cu, composite_backward.cu),
@@ -30,9 +32,19 @@
 //                    block exit
 //   replay_fwd       the forward's walk with its stops, one float out
 //   bwd_nowrite      the backward without its gradient write
+//   bwd_noshfl       the main backward (warp map and cull) without its
+//                    warp butterflies: lane 0's own terms as each warp's
+//                    partial, the other lanes' folded into a kept-live sum
+//                    (nine adds per walked row in place of 45 shuffles and
+//                    45 adds)
 // An ablation whose output reads one value keeps every dropped result
 // live (gsjt::keep_live, with a run-time zero), so nvcc cannot delete the
-// work it stands for.
+// work it stands for. The probes above bwd_noshfl keep the walk they were
+// first measured on, the row-major warp map without the cull, so that
+// their times stay comparable.
+// The twins are the main kernels with the cull off: the same warp map,
+// arguments and outputs, every staged row walked by every warp. The main
+// kernels must equal them bit for bit (chip_smoke.py, the card tests).
 
 #include <cuda_runtime.h>
 
@@ -49,7 +61,7 @@ outpath_kernel(const float* __restrict__ inst,
                const int* __restrict__ tile_start, float* __restrict__ out,
                int tiles_x, int tile_w, int tile_h) {
   gsjt::forward_tile<PPT, kMode>(inst, tile_start, out, nullptr, tiles_x,
-                                 tile_w, tile_h, 0.0f);
+                                 tile_w, tile_h, 0, 1, 0.0f);
 }
 
 template <int PPT>
@@ -59,7 +71,32 @@ blockout_kernel(const float* __restrict__ inst,
                 float* __restrict__ out_color, float* __restrict__ out_t,
                 int tiles_x, int tile_w, int tile_h) {
   gsjt::forward_tile<PPT, gsjt::kForward>(inst, tile_start, out_color, out_t,
-                                          tiles_x, tile_w, tile_h, 0.0f);
+                                          tiles_x, tile_w, tile_h, 0, 1,
+                                          0.0f);
+}
+
+// The main kernels' twins: composite_forward.cu's and
+// composite_backward.cu's kernels with kCull off.
+template <int PPT>
+__global__ void __launch_bounds__(1024, PPT == 1 ? 2 : 1)
+nocull_forward_kernel(const float* __restrict__ inst,
+                      const int* __restrict__ tile_start,
+                      float* __restrict__ out_color, float* __restrict__ out_t,
+                      int tiles_x, int tile_w, int tile_h, int warp_w,
+                      int strips) {
+  gsjt::forward_tile<PPT, gsjt::kForward>(inst, tile_start, out_color, out_t,
+                                          tiles_x, tile_w, tile_h, warp_w,
+                                          strips, 0.0f);
+}
+
+__global__ void __launch_bounds__(1024)
+nocull_backward_kernel(const float* __restrict__ inst,
+                       const int* __restrict__ tile_start,
+                       const float4* __restrict__ cot,
+                       float* __restrict__ grads, int tiles_x, int tile_w,
+                       int tile_h, int warp_w) {
+  gsjt::backward_tile<gsjt::kBackwardPpt, gsjt::kBackward>(
+      inst, tile_start, cot, grads, tiles_x, tile_w, tile_h, warp_w, 0.0f);
 }
 
 template <int PPT, int kMode>
@@ -69,20 +106,23 @@ variant_walk_kernel(const float* __restrict__ inst,
                     float* __restrict__ out, int tiles_x, int tile_w,
                     int tile_h, float keep) {
   gsjt::forward_tile<PPT, kMode>(inst, tile_start, out, nullptr, tiles_x,
-                                 tile_w, tile_h, keep);
+                                 tile_w, tile_h, 0, 1, keep);
 }
 
-// Held to the backward's occupancy: at one pixel per thread
-// composite_backward_kernel fits in 32 registers, two blocks per SM; without
-// the write nvcc takes 47 and halves the blocks in flight.
-template <int PPT>
+// bwd_nowrite (one pixel per thread at 32x32) is held to the occupancy of
+// the row-major one-pixel backward it ablates, which fit in 32 registers,
+// two blocks per SM; without the write nvcc takes 47 and halves the blocks
+// in flight.
+// bwd_noshfl launches at the main backward's four pixels per thread.
+template <int PPT, int kMode, bool kCull>
 __global__ void __launch_bounds__(1024, PPT == 1 ? 2 : 1)
 variant_bwd_kernel(const float* __restrict__ inst,
                    const int* __restrict__ tile_start,
                    const float4* __restrict__ cot, float* __restrict__ out,
-                   int tiles_x, int tile_w, int tile_h, float keep) {
-  gsjt::backward_tile<PPT, false>(inst, tile_start, cot, out, tiles_x, tile_w,
-                                  tile_h, keep);
+                   int tiles_x, int tile_w, int tile_h, int warp_w,
+                   float keep) {
+  gsjt::backward_tile<PPT, kMode, kCull>(inst, tile_start, cot, out, tiles_x,
+                                         tile_w, tile_h, warp_w, keep);
 }
 
 // dma_only: the tile's chunks [c0, c0 + n) staged through shared memory as
@@ -143,6 +183,7 @@ enum Variant : int {
   kFwdNoCond = 2,
   kReplayFwd = 3,
   kBwdNoWrite = 4,
+  kBwdNoShfl = 5,
 };
 
 // inst: (P, 16) f32 rows; tile_start: (n_tiles + 1) i32;
@@ -154,7 +195,7 @@ extern "C" int gsjt_outpath(const float* inst, const int* tile_start,
   const int pix = tile_w * tile_h;
   const int ppt = gsjt::pixels_per_thread(pix);
   const int threads = gsjt::block_threads(pix, ppt);
-  const size_t smem = threads * (2 * sizeof(float4) + sizeof(float));
+  const size_t smem = gsjt::forward_smem(threads, false);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return gsjt::launch_with_ppt(ppt, [&](auto kPpt) {
     constexpr int P = decltype(kPpt)::value;
@@ -176,7 +217,7 @@ extern "C" int gsjt_blockout(const float* inst, const int* tile_start,
   const int pix = tile_w * tile_h;
   const int ppt = gsjt::pixels_per_thread(pix);
   const int threads = gsjt::block_threads(pix, ppt);
-  const size_t smem = threads * (2 * sizeof(float4) + sizeof(float));
+  const size_t smem = gsjt::forward_smem(threads, false);
   return gsjt::launch_with_ppt(ppt, [&](auto kPpt) {
     blockout_kernel<decltype(kPpt)::value>
         <<<n_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
@@ -185,18 +226,28 @@ extern "C" int gsjt_blockout(const float* inst, const int* tile_start,
 }
 
 // inst: (n_rows, 16) f32; tile_start: (n_tiles + 1) i32; cot: (n_tiles,
-// PIX, 4) f32, read by kBwdNoWrite only; out: (n_tiles,) f32. keep must be
-// 0 (see gsjt::keep_live).
+// PIX, 4) f32, read by the backward variants only; out: (n_tiles,) f32,
+// or for kBwdNoShfl the (n_rows, 16) gradients, zero-filled by the caller.
+// keep must be 0 (see gsjt::keep_live).
 extern "C" int gsjt_variant(const float* inst, int n_rows,
                             const int* tile_start, const float* cot,
                             float* out, int n_tiles, int tiles_x, int tile_w,
                             int tile_h, int variant, float keep,
                             void* stream) {
   const int pix = tile_w * tile_h;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (variant == kBwdNoShfl) {  // the main backward's launch
+    const int threads = gsjt::backward_threads(pix);
+    if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+    variant_bwd_kernel<gsjt::kBackwardPpt, gsjt::kBwdNoShfl, true>
+        <<<n_tiles, threads, gsjt::backward_smem(threads), s>>>(
+            inst, tile_start, reinterpret_cast<const float4*>(cot), out,
+            tiles_x, tile_w, tile_h, gsjt::warp_map(tile_w, tile_h), keep);
+    return static_cast<int>(cudaGetLastError());
+  }
   const int ppt = gsjt::pixels_per_thread(pix);
   const int threads = gsjt::block_threads(pix, ppt);
-  const size_t smem = threads * (2 * sizeof(float4) + sizeof(float));
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t smem = gsjt::forward_smem(threads, false);
   return gsjt::launch_with_ppt(ppt, [&](auto kPpt) {
     constexpr int P = decltype(kPpt)::value;
     switch (variant) {
@@ -217,9 +268,49 @@ extern "C" int gsjt_variant(const float* inst, int n_rows,
             inst, tile_start, out, tiles_x, tile_w, tile_h, keep);
         break;
       default:
-        variant_bwd_kernel<P><<<n_tiles, threads, 0, s>>>(
+        variant_bwd_kernel<P, gsjt::kBwdNoWrite, false>
+            <<<n_tiles, threads, gsjt::backward_smem(threads), s>>>(
             inst, tile_start, reinterpret_cast<const float4*>(cot), out,
-            tiles_x, tile_w, tile_h, keep);
+            tiles_x, tile_w, tile_h, 0, keep);
     }
   });
+}
+
+// The reference twins of gsjt_composite_forward and
+// gsjt_composite_backward: the same arguments, outputs and warp map, the
+// cull off.
+extern "C" int gsjt_composite_forward_nocull(const float* inst,
+                                             const int* tile_start,
+                                             float* color, float* trans,
+                                             int n_tiles, int tiles_x,
+                                             int tile_w, int tile_h,
+                                             void* stream) {
+  const int warp_w = gsjt::warp_map(tile_w, tile_h);
+  const int strips = gsjt::tile_strips(tile_w, tile_h, warp_w);
+  const int pix = tile_w * tile_h / strips;
+  const int ppt = gsjt::pixels_per_thread(pix);
+  const int threads = gsjt::block_threads(pix, ppt);
+  const size_t smem = gsjt::forward_smem(threads, false);
+  return gsjt::launch_with_ppt(ppt, [&](auto kPpt) {
+    nocull_forward_kernel<decltype(kPpt)::value>
+        <<<n_tiles * strips, threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(
+            inst, tile_start, color, trans, tiles_x, tile_w, tile_h, warp_w,
+            strips);
+  });
+}
+
+extern "C" int gsjt_composite_backward_nocull(const float* inst,
+                                              const int* tile_start,
+                                              const float* cot, float* grads,
+                                              int n_tiles, int tiles_x,
+                                              int tile_w, int tile_h,
+                                              void* stream) {
+  const int threads = gsjt::backward_threads(tile_w * tile_h);
+  if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+  nocull_backward_kernel<<<n_tiles, threads, gsjt::backward_smem(threads),
+                           static_cast<cudaStream_t>(stream)>>>(
+      inst, tile_start, reinterpret_cast<const float4*>(cot), grads, tiles_x,
+      tile_w, tile_h, gsjt::warp_map(tile_w, tile_h));
+  return static_cast<int>(cudaGetLastError());
 }

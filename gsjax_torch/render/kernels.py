@@ -13,8 +13,12 @@ its backward (gsjax/render/pallas_kernels.py):
 The two composite kernels take their walks from the same header
 (csrc/composite_walk.cuh) and are built with the same flags, so the
 backward replays the forward's skip and termination decisions bit for bit.
-The library also holds the profiling tools' kernels (row_gather.cu,
-composite_probes.cu), whose wrappers are in gsjax_torch/tools/kernels.py.
+Each warp of theirs covers a compact block of its tile's pixels and culls
+the rows none of its pixels can take (tiled.footprint_box; the forward on
+tiles of 512 pixels or more), without changing a bit of the output. The library also holds the profiling tools'
+kernels (row_gather.cu, composite_probes.cu: the probes and the two
+composite kernels' reference twins without the cull), whose wrappers are
+in gsjax_torch/tools/kernels.py.
 
 Each wrapper dispatches on the device of its tensors: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version of the
@@ -164,7 +168,10 @@ def library() -> ctypes.CDLL:
         lib.gsjt_outpath.argtypes = [p, p, p, i, i, i, i, i, p]
         lib.gsjt_blockout.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gsjt_variant.argtypes = [p, i, p, p, p, i, i, i, i, i, ctypes.c_float, p]
-        for name in (*KERNEL_NAMES, "row_gather", "outpath", "blockout", "variant"):
+        lib.gsjt_composite_forward_nocull.argtypes = [p, p, p, p, i, i, i, i, p]
+        lib.gsjt_composite_backward_nocull.argtypes = [p, p, p, p, i, i, i, i, p]
+        for name in (*KERNEL_NAMES, "row_gather", "outpath", "blockout", "variant",
+                     "composite_forward_nocull", "composite_backward_nocull"):
             getattr(lib, f"gsjt_{name}").restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -1,7 +1,8 @@
 """The composite kernels taken apart on the card: each ablated variant of
 the walk (tools/kernels.py) on the bench view's instance stream, beside
-the full composite_forward and composite_backward on the same arguments,
-so that one run prints the whole decomposition. The counterpart of the
+the full composite_forward and composite_backward and their twins without
+the cull on the same arguments, so that one run prints the whole
+decomposition. The counterpart of the
 JAX package's tools/ablate_kernels.py.
 
     python -m gsjax_torch.tools.ablate_kernels [variant ...]
@@ -13,12 +14,16 @@ Variants (default: dma_only replay_fwd bwd_nowrite):
   replay_fwd    the forward's walk, one float out
   bwd_nowrite   the backward without its gradient write (so is any other
                 name, as in the JAX tool)
+  bwd_noshfl    the main backward (warp map, cull, write) without its warp
+                butterflies: how much of it the shuffles take
   blockout, blockout_parallel
                 the forward with pixel-major outputs (the TPU grid's
                 dimension semantics have no counterpart on the card)
-The backward runs, here and in bwd_nowrite, on the JAX tool's cotangent
-(d_color 1e-6, suffix 1e-3). One JSON line each: device ms (profiler)
-and event ms (CUDA events, host launch work included), mean of REPS.
+The backward runs, here and in the backward variants, on the JAX tool's
+cotangent (d_color 1e-6, suffix 1e-3). All variants but bwd_noshfl walk as
+the kernels did before the cull (row-major warps, every row). One JSON
+line each: device ms (profiler) and event ms (CUDA events, host launch
+work included), mean of REPS.
 """
 
 from __future__ import annotations
@@ -43,8 +48,9 @@ REPS = 30
 
 
 def ablate(stream, variants=DEFAULT_VARIANTS, reps: int = REPS) -> list[dict]:
-    """Times each variant and then the two full kernels on `stream`
-    (common.InstanceStream); one dict per line."""
+    """Times each variant and then the two full kernels and their twins
+    without the cull on `stream` (common.InstanceStream); one dict per
+    line."""
     inst, ts, geo = stream.inst, stream.tile_start, stream.geometry
     pix = geo["tile_w"] * geo["tile_h"]
     rows = []
@@ -68,6 +74,12 @@ def ablate(stream, variants=DEFAULT_VARIANTS, reps: int = REPS) -> list[dict]:
     timed("composite_backward",
           lambda: kernels.composite_backward(inst, ts, cot, **geo),
           "composite_backward_kernel")
+    timed("composite_forward_nocull",
+          lambda: tool_kernels.composite_forward_nocull(inst, ts, **geo),
+          "nocull_forward_kernel")
+    timed("composite_backward_nocull",
+          lambda: tool_kernels.composite_backward_nocull(inst, ts, cot, **geo),
+          "nocull_backward_kernel")
     return rows
 
 

@@ -9,9 +9,20 @@ tools:
   blockout    <- tools/ablate_kernels.py::run_blockout    (csrc/composite_probes.cu)
   variant     <- tools/ablate_kernels.py::run_variant     (csrc/composite_probes.cu)
 
+and the main composite kernels' reference twins, which have no TPU
+counterpart (csrc/composite_probes.cu):
+
+  composite_forward_nocull, composite_backward_nocull
+      render/kernels.py's composite_forward and composite_backward with the
+      cull off: the same arguments, outputs and warp map, every staged row
+      walked by every warp. The main kernels equal them bit for bit; their
+      plain versions are the main kernels'.
+
 The three composite probes are the main path's walks (csrc/composite_walk.cuh)
 with one part taken out, so each is held to its plain version here and
-times its part on the card. Notation: tile t has the stream range
+times its part on the card. All but bwd_noshfl keep the walk they had
+before the cull (the row-major warp map, no cull), so their times stay
+comparable; bwd_noshfl ablates the main backward. Notation: tile t has the stream range
 [i0, i1) = [tile_start[t], tile_start[t+1]); its chunks are the 128-row
 blocks c0 = i0 // 128 ... c0 + n - 1 that meet the range (n = 0 for an
 empty range); pixel 0 is the tile's top-left pixel.
@@ -31,17 +42,21 @@ from gsjax_torch.render import tiled
 from gsjax_torch.render.common import ROW_MX, ROW_R
 from gsjax_torch.render.kernels import current_stream, library, require, route
 
-KERNEL_NAMES = ("row_gather", "outpath", "blockout", "variant")
+KERNEL_NAMES = ("row_gather", "outpath", "blockout", "variant",
+                "composite_forward_nocull", "composite_backward_nocull")
 launch_counts = {name: 0 for name in KERNEL_NAMES}
 
 GATHER_WIDTHS = (1, 8, 16)
 OUTPATH_VARIANTS = ("ship", "notrans")
 SEMANTICS = ("arbitrary", "parallel")
-# The ablation tool's variants; any other name is the backward without its
-# write, as in the tool's fall-through (ablate_kernels.py:221-236).
-VARIANTS = ("dma_only", "fwd_nodep", "fwd_nocond", "replay_fwd", "bwd_nowrite")
-_VARIANT_IDS = {"dma_only": 0, "fwd_nodep": 1, "fwd_nocond": 2, "replay_fwd": 3}
-_BWD_NOWRITE = 4
+# The ablation tool's variants and the port's bwd_noshfl; any other name
+# is the backward without its write, as in the tool's fall-through
+# (ablate_kernels.py:221-236).
+TOOL_VARIANTS = ("dma_only", "fwd_nodep", "fwd_nocond", "replay_fwd", "bwd_nowrite")
+VARIANTS = (*TOOL_VARIANTS, "bwd_noshfl")
+_VARIANT_IDS = {"dma_only": 0, "fwd_nodep": 1, "fwd_nocond": 2, "replay_fwd": 3,
+                "bwd_noshfl": 5}
+_BWD_NOWRITE, _BWD_NOSHFL = 4, 5
 # The backward variant's cotangent, the tool's d_color and suffix seed:
 # cot[..., 0:3] = 1e-6 and cot[..., 3] = 1e-3 (the port's [dC, A'_0]).
 BWD_D_COLOR, BWD_SUFFIX = 1e-6, 1e-3
@@ -230,6 +245,28 @@ def _nodep_plain(inst, tile_start, geo):
     return out
 
 
+def _chunk_head_sums(grads, tile_start, n_tiles):
+    """Per tile, the sum of grads[k, ROW_MX] over its stream positions k in
+    [i0, i1) with k % 128 == 0, (T,) f32."""
+    k = torch.arange(0, grads.shape[0], CHUNK, device=grads.device)
+    tile = torch.searchsorted(tile_start, k.to(torch.int32), right=True) - 1
+    valid = (k >= tile_start[0]) & (k < tile_start[-1]) & (tile < n_tiles)
+    out = torch.zeros(n_tiles, dtype=torch.float32, device=grads.device)
+    return out.index_add_(0, tile[valid], grads[k[valid], ROW_MX])
+
+
+def lane0_cot(n_tiles: int, tile_w: int, tile_h: int, device) -> torch.Tensor:
+    """bwd_noshfl's cotangent in plain form: the backward variant's, zero
+    but at the pixels that lane 0 of a warp holds under the main kernels'
+    warp map. A pixel with a zero cotangent adds nothing to any gradient,
+    so the plain backward on it is the sum of the lane-0 pixels' terms."""
+    cot = bwd_nowrite_cot(n_tiles, tile_w * tile_h, device)
+    lane0 = tiled.warp_pixels(tile_w, tile_h, device=device)[:, 0]
+    keep = torch.zeros(tile_w * tile_h, dtype=torch.bool, device=device)
+    keep[lane0[lane0 >= 0]] = True
+    return torch.where(keep[None, :, None], cot, 0.0)
+
+
 def variant_plain(inst, tile_start, name, *, n_tiles, tiles_x, tile_w, tile_h):
     geo = _geometry(n_tiles, tiles_x, tile_w, tile_h)
     if name == "dma_only":
@@ -241,13 +278,10 @@ def variant_plain(inst, tile_start, name, *, n_tiles, tiles_x, tile_w, tile_h):
     elif name in ("fwd_nocond", "replay_fwd"):
         out = tiled.composite_tiles(inst, tile_start, **geo)[0][:, 0, 0]
     else:
-        cot = bwd_nowrite_cot(n_tiles, tile_w * tile_h, inst.device)
+        cot = (lane0_cot(n_tiles, tile_w, tile_h, inst.device) if name == "bwd_noshfl"
+               else bwd_nowrite_cot(n_tiles, tile_w * tile_h, inst.device))
         grads = tiled.composite_backward_tiles(inst, tile_start, cot, **geo)
-        k = torch.arange(0, inst.shape[0], CHUNK, device=inst.device)
-        tile = torch.searchsorted(tile_start, k.to(torch.int32), right=True) - 1
-        valid = (k >= tile_start[0]) & (k < tile_start[-1]) & (tile < n_tiles)
-        out = torch.zeros(n_tiles, dtype=torch.float32, device=inst.device)
-        out.index_add_(0, tile[valid], grads[k[valid], ROW_MX])
+        out = _chunk_head_sums(grads, tile_start, n_tiles)
     return out.reshape(n_tiles, 1, 1)
 
 
@@ -271,6 +305,11 @@ def variant(
       fwd_nocond  the exact forward's red at pixel 0, walked with no stop
                   (each pixel visits the whole range; done masks)
       replay_fwd  the exact forward's red at pixel 0, with its stops
+      bwd_noshfl  as bwd_nowrite, G the gradients of the pixels at lane 0
+                  of each warp of the main kernels' warp map: the main
+                  backward (warp map, cull, write) without its warp
+                  butterflies. The kernel writes G whole; the wrapper
+                  reduces it.
       any other   (bwd_nowrite) sum over k in [i0, i1), k % 128 == 0, of
                   G[k, 0], G = composite_backward with cot = [1e-6, 1e-6,
                   1e-6, 1e-3] per pixel, no gradient written
@@ -281,15 +320,90 @@ def variant(
     pix = render_kernels.tile_pixels("variant", tile_w, tile_h)
     _stream_args("variant", inst, tile_start, n_tiles)
     vid = _VARIANT_IDS.get(name, _BWD_NOWRITE)
-    cot = (bwd_nowrite_cot(n_tiles, pix, inst.device) if vid == _BWD_NOWRITE
-           else None)
+    cot = (bwd_nowrite_cot(n_tiles, pix, inst.device)
+           if vid in (_BWD_NOWRITE, _BWD_NOSHFL) else None)
     out = torch.empty((n_tiles, 1, 1), dtype=torch.float32, device=inst.device)
     if n_tiles == 0:
         return out
+    # bwd_noshfl writes the whole (P, 16) gradient rows, zero-filled here.
+    dest = torch.zeros_like(inst) if vid == _BWD_NOSHFL else out
     err = library().gsjt_variant(
         inst.data_ptr(), inst.shape[0], tile_start.data_ptr(),
-        None if cot is None else cot.data_ptr(), out.data_ptr(), n_tiles,
+        None if cot is None else cot.data_ptr(), dest.data_ptr(), n_tiles,
         tiles_x, tile_w, tile_h, vid, 0.0, current_stream(),
     )
     _check("variant", err)
+    if vid == _BWD_NOSHFL:
+        return _chunk_head_sums(dest, tile_start, n_tiles).reshape(n_tiles, 1, 1)
     return out
+
+
+# --- the main composite kernels' twins without the cull -------------------------
+
+composite_forward_nocull_plain = render_kernels.composite_forward_plain
+composite_backward_nocull_plain = render_kernels.composite_backward_plain
+
+
+def composite_forward_nocull(
+    inst: torch.Tensor,
+    tile_start: torch.Tensor,
+    *,
+    n_tiles: int,
+    tiles_x: int,
+    tile_w: int,
+    tile_h: int,
+    chunk: int = 128,
+    strips: int = 1,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """render/kernels.py's composite_forward with the cull off; the same
+    arguments and outputs, the same bits."""
+    if not route("composite_forward_nocull", inst, tile_start):
+        return composite_forward_nocull_plain(
+            inst, tile_start, n_tiles=n_tiles, tiles_x=tiles_x, tile_w=tile_w,
+            tile_h=tile_h, chunk=chunk, strips=strips,
+        )
+    pix = render_kernels.tile_pixels("composite_forward_nocull", tile_w, tile_h)
+    _stream_args("composite_forward_nocull", inst, tile_start, n_tiles)
+    color = torch.empty((n_tiles, pix, 3), dtype=torch.float32, device=inst.device)
+    trans = torch.empty((n_tiles, pix), dtype=torch.float32, device=inst.device)
+    if n_tiles == 0:
+        return color, trans
+    err = library().gsjt_composite_forward_nocull(
+        inst.data_ptr(), tile_start.data_ptr(), color.data_ptr(),
+        trans.data_ptr(), n_tiles, tiles_x, tile_w, tile_h, current_stream(),
+    )
+    _check("composite_forward_nocull", err)
+    return color, trans
+
+
+def composite_backward_nocull(
+    inst: torch.Tensor,
+    tile_start: torch.Tensor,
+    cot: torch.Tensor,
+    *,
+    n_tiles: int,
+    tiles_x: int,
+    tile_w: int,
+    tile_h: int,
+    chunk: int = 128,
+    strips: int = 1,
+) -> torch.Tensor:
+    """render/kernels.py's composite_backward with the cull off; the same
+    arguments and outputs, the same gradients (up to the sign of a zero)."""
+    if not route("composite_backward_nocull", inst, tile_start, cot):
+        return composite_backward_nocull_plain(
+            inst, tile_start, cot, n_tiles=n_tiles, tiles_x=tiles_x,
+            tile_w=tile_w, tile_h=tile_h, chunk=chunk, strips=strips,
+        )
+    pix = render_kernels.tile_pixels("composite_backward_nocull", tile_w, tile_h)
+    _stream_args("composite_backward_nocull", inst, tile_start, n_tiles)
+    require("composite_backward_nocull cot", cot, torch.float32, (n_tiles, pix, 4))
+    grads = torch.zeros_like(inst)
+    if n_tiles == 0:
+        return grads
+    err = library().gsjt_composite_backward_nocull(
+        inst.data_ptr(), tile_start.data_ptr(), cot.data_ptr(),
+        grads.data_ptr(), n_tiles, tiles_x, tile_w, tile_h, current_stream(),
+    )
+    _check("composite_backward_nocull", err)
+    return grads

@@ -7,10 +7,12 @@ turns, on one card.
     python -m gsjax_torch.tools.time_composite [--tile WxH]
 
 The bench scene (500k Gaussians, SH degree 3, 1920x1080, bench.py's
-budgets) is rendered once with gradients; each kernel's arguments are
+budgets, scaled up by the tiles' area below 32x32 so that the stream never
+overflows) is rendered once with gradients; each kernel's arguments are
 recorded from that render and its backward (d mean(image) / d params),
 then each kernel is timed alone: torch.profiler device time of its own
-launches, mean of REPS. Prints one JSON line.
+launches, mean of REPS. Prints one JSON line, with the stream's instance
+count; exits non-zero if the stream overflowed its budget.
 """
 
 from __future__ import annotations
@@ -57,7 +59,9 @@ def main() -> None:
     params, aux = random_scene(500_000, capacity=500_000, sh_degree=3, seed=0,
                                spread=2.5, scale_range=(0.004, 0.03))
     camera = look_at_origin_camera(1920, 1080)
-    cfg = RasterConfig(tile_w=tw, tile_h=th, **BUDGETS)
+    scale = max(1, -(-32 * 32 // (tw * th)))
+    cfg = RasterConfig(tile_w=tw, tile_h=th,
+                       **{k: v * scale for k, v in BUDGETS.items()})
     calls = {}
     real = {k: getattr(kernels, k) for k in ("composite_forward", "composite_backward")}
 
@@ -77,9 +81,12 @@ def main() -> None:
     finally:
         for name, fn in real.items():
             setattr(kernels, name, fn)
+    n_inst, n_rows = int(out.num_instances), int(out.num_rows)
+    if n_inst > cfg.max_instances or n_rows > cfg.max_rows:
+        raise SystemExit(f"time_composite: the stream overflowed ({n_inst}, {n_rows})")
     line = {"tool": "time_composite", "tile": f"{tw}x{th}",
             "device": torch.cuda.get_device_name(0),
-            "package": str(kernels.CSRC.parent)}
+            "package": str(kernels.CSRC.parent), "num_instances": n_inst}
     with torch.no_grad():
         for name, fn in real.items():
             args, kw = calls[name]

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the render path's (render/kernels.py, tiles up to 64x64) and the profiling
-tools' (tools/kernels.py).
+tools' (tools/kernels.py); the culled composite kernels against their
+twins without the cull, bit for bit.
 
 Needs an NVIDIA GPU and nvcc: every test is marked `cuda` and skips
 without a card. This file imports no JAX, so on a machine without JAX it
@@ -165,6 +166,38 @@ def test_composite_backward_and_segment_sum_match_plain(card, cfg, monkeypatch):
     assert bool(((got - want).abs() <= 1e-5 * scale).all())
 
 
+@pytest.mark.parametrize("cfg", ["16x16", "32x16", "overflow", "64x32", "64x64",
+                                 "32x32_dense"])
+def test_composite_kernels_equal_nocull_twins(card, cfg, monkeypatch):
+    """The culled composite kernels against their twins without the cull:
+    the forward bit for bit, the backward's gradients bit for bit but the
+    sign of a zero; and the twins against the plain versions. The dense
+    case (12,000 Gaussians, 32x32 tiles, where the forward culls too)
+    gives tiles of several staging batches, where pixels finish before
+    the batch ends."""
+    fwds = _record(monkeypatch, "composite_forward")
+    backs = _record(monkeypatch, "composite_backward")
+    if cfg.endswith("_dense"):
+        dense = RasterConfig(tile_size=32, max_instances=1 << 16, max_rows=1 << 15)
+        _render_grads("cpu", dense, n=12_000)
+    else:
+        _render_grads("cpu", CFGS[cfg])
+    (f_args, f_kw), (b_args, b_kw) = fwds[-1], backs[-1]
+    a, kw = _to(card, f_args, f_kw)
+    twin = tool_kernels.composite_forward_nocull(*a, **kw)
+    for got, want in zip(kernels.composite_forward(*a, **kw), twin):
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    for got, want in zip(twin, kernels.composite_forward_plain(*f_args, **f_kw)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=2e-3)
+    a, kw = _to(card, b_args, b_kw)
+    got = kernels.composite_backward(*a, **kw)
+    twin = tool_kernels.composite_backward_nocull(*a, **kw)
+    assert torch.equal(got, twin) and bool((got != 0).any())
+    want = kernels.composite_backward_plain(*b_args, **b_kw)
+    for j in range(16):
+        _scaled_close(twin[:, j], want[:, j], what=f"column {j}")
+
+
 def test_render_on_card_matches_cpu(card):
     """Forward and backward on the card against the CPU's plain versions;
     each of the five kernels launches once."""
@@ -206,8 +239,9 @@ def test_variant_matches_plain(card, tool_stream, name):
                                tool_stream.tile_start.to(card), name, **geo).cpu()
     if name == "dma_only":
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6)
-    elif name == "bwd_nowrite":
-        cot = tool_kernels.bwd_nowrite_cot(geo["n_tiles"], 1024, "cpu")
+    elif name in ("bwd_nowrite", "bwd_noshfl"):
+        cot = (tool_kernels.lane0_cot(geo["n_tiles"], 32, 32, "cpu") if name == "bwd_noshfl"
+               else tool_kernels.bwd_nowrite_cot(geo["n_tiles"], 1024, "cpu"))
         grads = kernels.composite_backward_plain(
             tool_stream.inst, tool_stream.tile_start, cot, **geo)
         # Within 5e-3 of the stream's largest |d_mx|.

@@ -41,6 +41,7 @@ from gsjax.config import RasterConfig as JaxRasterConfig
 from gsjax.render.binning import bin_gaussians, num_tiles
 from gsjax.render.common import build_inst_data
 from gsjax.render.composite import pack_fields
+from gsjax.render.pallas_kernels import composite_backward_pallas
 from gsjax.render.preprocess import preprocess
 from gsjax_torch import bench
 from gsjax_torch.config import RasterConfig
@@ -136,7 +137,7 @@ def test_instance_stream_matches_gsjax(stream):
     np.testing.assert_allclose(n(got.inst), want, rtol=1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("name", [*tk.VARIANTS, "other"])
+@pytest.mark.parametrize("name", [*tk.TOOL_VARIANTS, "other"])
 def test_variant_matches_ablate_kernels(stream, name):
     want = np.asarray(stream["ablate"]["run_variant"](
         stream["inst"], jnp.asarray(stream["tile_start"]), variant=name,
@@ -160,6 +161,29 @@ def test_variant_matches_ablate_kernels(stream, name):
     # Each case is one the scene makes non-trivial (dma_only and the
     # forward variants: a tile whose pixel 0 or first rows are covered).
     assert np.abs(want).max() > 0
+
+
+def test_bwd_noshfl_matches_pallas_backward_at_lane0(stream):
+    """bwd_noshfl, the port's own ablation (the JAX tool has none): the
+    backward of the pixels at lane 0 of each warp. gsjax's
+    composite_backward_pallas (interpret mode) on the tool's cotangent
+    zeroed but at those pixels, summed as bwd_nowrite sums, within 5e-3
+    of its largest |d_mx|."""
+    geo, n_tiles = stream["port_geo"], stream["geo"]["n_tiles"]
+    cot = tk.lane0_cot(n_tiles, TILE, TILE, "cpu")  # (T, PIX, 4)
+    assert int((cot[..., 3] != 0).sum()) == n_tiles * TILE * TILE // 32
+    want = np.asarray(composite_backward_pallas(
+        stream["inst"], jnp.asarray(stream["tile_start"]),
+        jnp.asarray(np.concatenate([n(cot).swapaxes(1, 2),
+                                    np.zeros((n_tiles, 4, TILE * TILE), np.float32)],
+                                   axis=1)),
+        chunk=128, interpret=True, **geo,
+    )).T  # (P, 16)
+    want_sums = n(tk._chunk_head_sums(t(want.copy()), stream["ts"], n_tiles))
+    got = n(tk.variant(stream["rows"], stream["ts"], "bwd_noshfl", **geo))[:, 0, 0]
+    scale = float(np.abs(want[:, 0]).max())
+    assert scale > 0 and np.abs(want_sums).max() > 0
+    np.testing.assert_allclose(got / scale, want_sums / scale, atol=5e-3)
 
 
 @pytest.mark.parametrize("semantics", tk.SEMANTICS)
