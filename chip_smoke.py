@@ -14,8 +14,12 @@ Phases, one JSON line each (any failure exits non-zero):
            (20k Gaussians at 320x240; integers exact, composite forward
            within 2e-3, composite backward within 5e-3 of each gradient
            column's largest value, segment sums within 1e-5 of each run's
-           sum of magnitudes), and binning's rank form (600k Gaussians at
-           1920x1080 in 16x16 tiles) against its gather path
+           sum of magnitudes); row_engine and rank_prefix bit for bit on
+           the inputs that break load-balanced designs (case
+           expand_adversarial, gsjax_torch/tools/expand_cases.py at card
+           scale); and binning's rank form (600k Gaussians at 1920x1080 in
+           16x16 tiles) against its gather path, with its rank_prefix's
+           device ms and bound
   oracle   render() and its gradients against the O(N * pixels) oracle
            and its autograd on the card; dead slots' gradients exactly 0
   main     the bench scene (500k Gaussians, SH degree 3, 1920x1080, 32x32
@@ -57,8 +61,11 @@ and 0 launches per step and per view), its error against its plain
 version on those very arguments (max_abs_err; the kernels and tools
 phases' errors in mid_scene_max_abs_err), device time from the profiler,
 time by CUDA events with the host's launch work included, plain time,
-bound, and the time of one PyTorch call computing the same function where
-there is one. Then the card line and the result line.
+bound, the time of one PyTorch call computing the same function where
+there is one, and the kernel's CUDA launches and the other device
+operations of one wrapper call (torch.profiler). Every number in the line
+is measured in the run, the bound computed from its inputs. Then the card
+line and the result line.
 Imports no JAX.
 """
 
@@ -208,6 +215,16 @@ def check_backward_kernels(kernels, calls, errs, where):
     return out
 
 
+def ops_per_call(fn, kernel_name) -> dict:
+    """The kernel's CUDA launches and the other device operations (fills,
+    memsets, PyTorch kernels around it) of one fn(), by torch.profiler."""
+    from gsjax_torch.tools.common import device_ops
+
+    ops = device_ops(fn, kernel_name)
+    return {"cuda_launches_per_call": ops["named"],
+            "other_device_ops_per_call": ops["kernels"] + ops["memsets"] - ops["named"]}
+
+
 def max_err(got, want) -> float:
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
@@ -329,6 +346,39 @@ def mid_scene_checks(torch, kernels, render, RasterConfig, random_scene,
         if e != 0:
             raise AssertionError(f"rank_prefix wraparound {kw}: error {e}")
     emit({"phase": "kernels", "case": "rank_prefix_wraparound", "rank_prefix": 0.0})
+    expand_adversarial(torch, kernels, dev, errs)
+
+
+def expand_adversarial(torch, kernels, dev, errs):
+    """Both expansion kernels against their plain versions, bit for bit, on
+    the inputs that break load-balanced designs
+    (gsjax_torch/tools/expand_cases.py at card scale: a 5,000-Gaussian
+    stretch without rows among 3.8e5 runs, a Gaussian taller than a block,
+    more rows than the budget, budgets of 1 and a block + 1, no rows,
+    degenerate and clamped conics, 24x16 tiles; a run of 10^5 slots, a
+    first start above 0, every start past the budget, one run, equal
+    starts)."""
+    from gsjax_torch.tools import expand_cases
+
+    line = {"phase": "kernels", "case": "expand_adversarial"}
+    for name, cases in (("row_engine", expand_cases.row_engine_cases("card")),
+                        ("rank_prefix", expand_cases.rank_prefix_cases("card"))):
+        line[name] = {}
+        for case, c in cases.items():
+            c = dict(c)
+            if name == "row_engine":
+                args = (torch.from_numpy(c.pop("table")).to(dev),
+                        torch.from_numpy(c.pop("total_rows")).to(dev))
+            else:
+                args = (torch.from_numpy(c.pop("start")).to(dev),
+                        torch.from_numpy(c.pop("delta")).to(dev))
+            e = max_err(getattr(kernels, name)(*args, **c),
+                        getattr(kernels, f"{name}_plain")(*args, **c))
+            if e != 0:
+                raise AssertionError(f"expand_adversarial {case}: {name} differs "
+                                     f"from plain by {e}")
+            line[name][case] = e
+    emit(line)
 
 
 def rank_form_check(torch, kernels, render, RasterConfig, random_scene,
@@ -377,9 +427,19 @@ def rank_form_check(torch, kernels, render, RasterConfig, random_scene,
                  "num_instances", "num_rows"):
         if not torch.equal(getattr(bins[0], name), getattr(bins[1], name)):
             raise AssertionError(f"rank form: {name} differs from the gather path")
+    from gsjax_torch.tools.common import device_ms
+
+    start, _ = args[:2]
+    nbytes = start.numel() * 4 * 2 + kw["budget"] * 4
+    with torch.no_grad():
+        ms = device_ms(lambda: kernels.rank_prefix(*args, **kw),
+                       DEVICE_KERNELS["rank_prefix"])
     emit({"phase": "kernels", "case": "rank_form_1080p_16x16", "gaussians": 600_000,
           "num_instances": n_inst, "num_rows": n_rows, "rank_prefix": e,
-          "binning_equals_gather_path": True, "launches": launched})
+          "binning_equals_gather_path": True, "launches": launched,
+          "rank_prefix_ms": ms, "rank_prefix_bound_ms": max(
+              nbytes / HBM_BYTES_PER_S, kw["budget"] * 4 / F32_FLOP_PER_S) * 1e3,
+          "rank_prefix_slots": kw["budget"], "rank_prefix_runs": start.numel()})
 
 
 def phase_oracle(torch, render, render_oracle, RasterConfig, random_scene,
@@ -710,9 +770,11 @@ def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
     timed = {r["variant"]: r for r in rows if "variant" in r}
     out = []
 
-    def entry(name, ms, event_ms, plain, nbytes, flops, library_ms=None, **extra):
+    def entry(name, ms, event_ms, plain, nbytes, flops, library_ms=None, call=None,
+              **extra):
         with torch.no_grad():
             plain_ms = cuda_ms(plain, reps=2)
+        extra.update(ops_per_call(call, DEVICE_KERNELS[name]))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOP_PER_S * 1e3
         out.append(dict(
@@ -739,23 +801,26 @@ def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
                                  warmup=2),
               library_int64_ms=cuda_ms(
                   lambda: torch.index_select(src, 0, idx.long()), reps=20, warmup=2),
-              shape=f"({src.shape[0]},{ROWS})@{n_rows}")
+              call=gather, shape=f"({src.shape[0]},{ROWS})@{n_rows}")
     outpath = {r["variant"]: r for r in rows if r["tool"] == "probe_outpath"}
     entry("outpath", outpath["ship"]["ms"], outpath["ship"]["event_ms"],
           lambda: tool_kernels.outpath_plain(inst, ts, "ship", **geo),
           n_live * 9 * 4 + ts.numel() * 4 + n_tiles * 8 * pix * 4,
           pairs * COMPOSITE_FLOP_PER_PAIR, variant="ship",
+          call=lambda: tool_kernels.outpath(inst, ts, "ship", **geo),
           notrans_ms=outpath["notrans"]["ms"])
     entry("blockout", timed["blockout"]["ms"], timed["blockout"]["event_ms"],
           lambda: tool_kernels.blockout_plain(inst, ts, **geo),
           n_live * 9 * 4 + ts.numel() * 4 + n_tiles * pix * 16,
           pairs * COMPOSITE_FLOP_PER_PAIR, semantics="arbitrary",
+          call=lambda: tool_kernels.blockout(inst, ts, **geo),
           parallel_ms=timed["blockout_parallel"]["ms"])
     entry("variant", timed["bwd_nowrite"]["ms"], timed["bwd_nowrite"]["event_ms"],
           lambda: tool_kernels.variant_plain(inst, ts, "bwd_nowrite", **geo),
           n_live * 64 + n_tiles * pix * 16 + ts.numel() * 4 + n_tiles * 4,
           pairs * COMPOSITE_FLOP_PER_PAIR + live * BACKWARD_FLOP_PER_LIVE_PAIR,
           variant="bwd_nowrite",
+          call=lambda: tool_kernels.variant(inst, ts, "bwd_nowrite", **geo),
           variants={v: dict(ms=timed[v]["ms"], event_ms=timed[v]["event_ms"],
                             max_abs_err=variant_errs[v]) for v in tool_kernels.VARIANTS},
           composite_forward_ms=timed["composite_forward"]["ms"],
@@ -802,7 +867,8 @@ def twin_entries(torch, tool_kernels, entries, origin_calls, train_calls,
             mid_scene_max_abs_err=mid_errs[twin_name], ms=twin_ms[twin_name],
             plain_ms=plain_ms, bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=None, plain_source=PLAIN_SOURCE[twin_name], event_ms=event_ms,
-            bytes=main["bytes"], flops=main["flops"], main_ms=main["ms"]))
+            bytes=main["bytes"], flops=main["flops"], main_ms=main["ms"],
+            **ops_per_call(lambda: twin(*args, **kw), DEVICE_KERNELS[twin_name])))
     return out
 
 
@@ -1117,6 +1183,7 @@ def main() -> int:
                 reps=20, warmup=2)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOP_PER_S * 1e3
+        extra.update(ops_per_call(lambda: fn(*args, **kw), DEVICE_KERNELS[name]))
         entries.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=train_launches[name],

@@ -158,9 +158,9 @@ def library() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.gsjt_composite_forward.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gsjt_composite_backward.argtypes = [p, p, p, p, i, i, i, i, p]
-        lib.gsjt_row_engine.argtypes = [
-            p, i, p, i, i, i, i, i, p, p, p, p, p, p, p, p,
-        ]
+        lib.gsjt_row_engine.argtypes = [p, i, p, i, i, i, i, i, p, p, p, p, p, p]
+        lib.gsjt_row_engine_scratch_words.argtypes = [i, i]
+        lib.gsjt_row_engine_scratch_words.restype = ctypes.c_longlong
         lib.gsjt_rank_prefix.argtypes = [p, i, p, i, i, i, p, p]
         lib.gsjt_segment_sum.argtypes = [p, p, p, i, p]
         # The profiling tools' kernels (gsjax_torch/tools/kernels.py).
@@ -429,6 +429,8 @@ def rank_prefix(
     out = torch.empty(budget, dtype=torch.int32, device=start.device)
     if budget == 0:
         return out
+    if budget + r >= 2**31:
+        raise ValueError(f"rank_prefix: budget + R = {budget + r} must stay below 2^31")
     err = library().gsjt_rank_prefix(
         start.data_ptr(), r, dcum.data_ptr(), budget, init, int(plus_iota),
         out.data_ptr(), current_stream(),
@@ -443,7 +445,17 @@ def rank_prefix(
 # their bits).
 TAB_RSTART, TAB_REND, TAB_Y0, TAB_X0, TAB_X1 = 0, 1, 2, 3, 4
 TAB_MX, TAB_MY, TAB_CA, TAB_CB, TAB_CC, TAB_QMAX, TAB_G = 5, 6, 7, 8, 9, 10, 11
-ROW_BLOCK = 1024
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root, as IEEE and the card's
+    sqrt.rn.f32 give it. torch's vectorised CPU sqrt of float32 is one ulp
+    off for some inputs (about 0.6 % of uniform ones), so on the CPU this
+    takes the float64 root rounded to float32, which is exact (53 >= 2 *
+    24 + 2 bits); on the card torch.sqrt is already exact."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x.double()).float()
+    return torch.sqrt(x)
 
 
 def row_x_interval(y0s, y1s, ca, cb, cc, qmax):
@@ -459,17 +471,17 @@ def row_x_interval(y0s, y1s, ca, cb, cc, qmax):
     safe_ca = torch.clamp(ca, min=eps)
     safe_cc = torch.clamp(cc, min=eps)
     det = torch.clamp(ca * cc - cb * cb, min=eps)
-    y_span = torch.sqrt(torch.clamp(qmax * safe_ca / det, min=0.0))
+    y_span = sqrt_rn(torch.clamp(qmax * safe_ca / det, min=0.0))
     lo_y = torch.maximum(y0s, -y_span)
     hi_y = torch.minimum(y1s, y_span)
     nonempty = lo_y <= hi_y
-    x_star = torch.sqrt(torch.clamp(qmax * safe_cc / det, min=0.0))
+    x_star = sqrt_rn(torch.clamp(qmax * safe_cc / det, min=0.0))
     ys_hi = clip(-cb * x_star / safe_cc, lo_y, hi_y)
     ys_lo = clip(cb * x_star / safe_cc, lo_y, hi_y)
     disc_hi = qmax * safe_ca - det * ys_hi * ys_hi
     disc_lo = qmax * safe_ca - det * ys_lo * ys_lo
-    x_hi = (-cb * ys_hi + torch.sqrt(torch.clamp(disc_hi, min=0.0))) / safe_ca
-    x_lo = (-cb * ys_lo - torch.sqrt(torch.clamp(disc_lo, min=0.0))) / safe_ca
+    x_hi = (-cb * ys_hi + sqrt_rn(torch.clamp(disc_hi, min=0.0))) / safe_ca
+    x_lo = (-cb * ys_lo - sqrt_rn(torch.clamp(disc_lo, min=0.0))) / safe_ca
     return x_lo, x_hi, nonempty
 
 
@@ -567,20 +579,21 @@ def row_engine(
     require("row_engine table", table, torch.int32, (16, n))
     require("row_engine total_rows", total_rows, torch.int32, ())
     dev = table.device
-    istart, delta, u = (
-        torch.empty(budget, dtype=torch.int32, device=dev) for _ in range(3)
-    )
-    total = torch.zeros((), dtype=torch.int32, device=dev)
     if budget == 0:
-        return istart, delta, u, total
-    n_blocks = -(-budget // ROW_BLOCK)
-    counts = torch.empty(budget, dtype=torch.int32, device=dev)
-    packed = torch.empty(budget, dtype=torch.int32, device=dev)
-    block_sums = torch.empty(n_blocks, dtype=torch.int32, device=dev)
-    err = library().gsjt_row_engine(
+        istart, delta, u = torch.empty((3, 0), dtype=torch.int32, device=dev)
+        return istart, delta, u, torch.zeros((), dtype=torch.int32, device=dev)
+    if budget + n >= 2**31:
+        raise ValueError(f"row_engine: budget + N = {budget + n} must stay below 2^31")
+    # One allocation: the kernel's look-back status words and ticket (8-byte
+    # words, cleared by the C call), then istart, delta, u and total.
+    lib = library()
+    words = 2 * lib.gsjt_row_engine_scratch_words(budget, n)
+    buf = torch.empty(words + 3 * budget + 1, dtype=torch.int32, device=dev)
+    istart, delta, u = buf[words:words + 3 * budget].view(3, budget).unbind(0)
+    total = buf[-1]
+    err = lib.gsjt_row_engine(
         table.data_ptr(), n, total_rows.data_ptr(), budget, tiles_x, tile_w,
-        tile_h, bits_tile, counts.data_ptr(), packed.data_ptr(),
-        block_sums.data_ptr(), istart.data_ptr(), delta.data_ptr(),
+        tile_h, bits_tile, buf.data_ptr(), istart.data_ptr(), delta.data_ptr(),
         u.data_ptr(), total.data_ptr(), current_stream(),
     )
     _check("row_engine", err)

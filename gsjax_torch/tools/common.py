@@ -97,30 +97,78 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel_name: str | None = None, reps: int = 20) -> float:
-    """Mean device time in ms of the device work one fn() launches (only
-    the kernels whose names hold `kernel_name`, if given), from
-    torch.profiler over `reps` runs. Unlike cuda_ms it leaves out the
-    host's time between launches, which is longer than a microsecond
-    kernel."""
+# torch.profiler on the card now and then records no device events for a
+# session, several sessions in a row at times: such a session is taken
+# again, after a pause that grows with each try.
+PROFILE_TRIES = 10
+
+
+def _profiled(fn, reps: int, accept):
+    """The CUDA events of one profiling session over `reps` runs of fn()
+    (after one unprofiled run) that `accept` takes, trying PROFILE_TRIES
+    sessions; None if none was accepted."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    # A profiling session now and then records no device events at all;
-    # such a session is taken again.
-    for _ in range(3):
+    for attempt in range(PROFILE_TRIES):
+        if attempt:
+            time.sleep(0.05 * attempt)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA
-                 and (kernel_name is None or kernel_name in e.key))
-        if us > 0:
-            return us / 1e3 / reps
-    raise AssertionError(f"the profiler saw no device time for {kernel_name}")
+        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if accept(events):
+            return events
+    return None
+
+
+def device_ms(fn, kernel_name: str | None = None, reps: int = 20) -> float:
+    """Mean device time in ms of the device work one fn() launches (only
+    the kernels whose names hold `kernel_name`, if given), from
+    torch.profiler over `reps` runs. Unlike cuda_ms it leaves out the
+    host's time between launches, which is longer than a microsecond
+    kernel. A session often misses one launch: a named kernel's time is
+    its mean per recorded launch times its launches per call."""
+    def named(events):
+        return [e for e in events if kernel_name is None or kernel_name in e.name]
+
+    events = _profiled(fn, reps, lambda ev: sum(e.self_device_time_total for e in named(ev)) > 0)
+    if events is None:
+        raise AssertionError(f"the profiler saw no device time for {kernel_name} "
+                             f"in {PROFILE_TRIES} sessions")
+    events = named(events)
+    us = sum(e.self_device_time_total for e in events)
+    if kernel_name is None:
+        return us / 1e3 / reps
+    return us / len(events) * max(round(len(events) / reps), 1) / 1e3
+
+
+def device_ops(fn, kernel_name: str | None = None, calls: int = 5) -> dict:
+    """The device operations of one fn() under no_grad, by torch.profiler
+    over `calls` calls, rounded to whole operations per call (a session
+    often misses one event): kernels, memsets, and with `kernel_name` the
+    launches of the kernels whose names hold it (`named`; a session that
+    recorded none of them is taken again)."""
+    def is_memset(e):
+        return "memset" in e.name.lower()
+
+    def accept(events):
+        return any(kernel_name in e.name for e in events) if kernel_name else bool(events)
+
+    with torch.no_grad():
+        events = _profiled(fn, calls, accept)
+    if events is None:
+        raise AssertionError(f"the profiler saw no device operation of {kernel_name} "
+                             f"in {PROFILE_TRIES} sessions")
+    memsets = sum(map(is_memset, events))
+    out = {"kernels": round((len(events) - memsets) / calls),
+           "memsets": round(memsets / calls)}
+    if kernel_name:
+        out["named"] = round(sum(kernel_name in e.name for e in events) / calls)
+    return out
 
 
 def profile_table(fn, unprofiled_ms: float, top: int = 15) -> dict:

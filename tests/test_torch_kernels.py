@@ -15,6 +15,8 @@ pipeline, and each kernel's arguments are recorded from that run.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -24,6 +26,7 @@ from gsjax_torch.model import PARAM_NAMES
 from gsjax_torch.render import kernels
 from gsjax_torch.render.api import render
 from gsjax_torch.synthetic import look_at_origin_camera, random_scene
+from gsjax_torch.tools import expand_cases
 from gsjax_torch.tools import kernels as tool_kernels
 from gsjax_torch.tools.common import instance_stream
 
@@ -128,6 +131,77 @@ def test_rank_prefix_wraparound(card, plus_iota, init):
         s.to(card), d.to(card), budget=budget, plus_iota=plus_iota, init=init,
     )
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+ROW_EXPAND_CASES = (
+    "empty_stretch", "tall_gaussian", "rows_over_budget", "budget_1",
+    "budget_513", "budget_1025", "all_empty", "degenerate_conics",
+    "clamped_conics", "tile_24x16",
+)
+RANK_EXPAND_CASES = (
+    "long_run", "first_start_above_0", "all_past_budget", "single_run",
+    "equal_starts_owner", "equal_starts",
+)
+
+
+@functools.cache
+def _expand_cases(kind, scale):
+    return getattr(expand_cases, f"{kind}_cases")(scale)
+
+
+def _expand_pairs(names):
+    return [(scale, name) for scale in ("small", "card") for name in names
+            if scale == "card" or name != "clamped_conics"]
+
+
+def test_expand_case_lists_are_complete():
+    for kind, names in (("row_engine", ROW_EXPAND_CASES),
+                        ("rank_prefix", RANK_EXPAND_CASES)):
+        for scale in ("small", "card"):
+            want = {n for s, n in _expand_pairs(names) if s == scale}
+            assert set(_expand_cases(kind, scale)) == want
+
+
+@pytest.mark.parametrize("scale,case", _expand_pairs(ROW_EXPAND_CASES))
+def test_row_engine_expand_cases_match_plain(card, scale, case):
+    """The load-balanced row engine bit for bit on the inputs that break
+    load-balanced designs, at the sizes of the CPU tests and at sizes where
+    blocks and the look-back between them matter."""
+    c = _expand_cases("row_engine", scale)[case]
+    kw = {k: c[k] for k in ("budget", "tiles_x", "tile_w", "tile_h", "bits_tile")}
+    table, total = torch.from_numpy(c["table"]), torch.from_numpy(c["total_rows"])
+    want = kernels.row_engine_plain(table, total, **kw)
+    got = kernels.row_engine(table.to(card), total.to(card), **kw)
+    for name, g, w in zip(("istart", "delta", "u", "total"), got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), name)
+
+
+@pytest.mark.parametrize("scale,case", _expand_pairs(RANK_EXPAND_CASES))
+def test_rank_prefix_expand_cases_match_plain(card, scale, case):
+    c = _expand_cases("rank_prefix", scale)[case]
+    kw = {k: c[k] for k in ("budget", "plus_iota", "init") if k in c}
+    start, delta = torch.from_numpy(c["start"]), torch.from_numpy(c["delta"])
+    want = kernels.rank_prefix_plain(start, delta, **kw)
+    got = kernels.rank_prefix(start.to(card), delta.to(card), **kw)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+
+
+def test_row_engine_and_rank_prefix_launch_once(card):
+    """One row_engine call is one kernel launch and one memset; one
+    rank_prefix call with dcum given is one kernel launch."""
+    from gsjax_torch.tools.common import device_ops
+
+    c = _expand_cases("row_engine", "card")["empty_stretch"]
+    kw = {k: c[k] for k in ("budget", "tiles_x", "tile_w", "tile_h", "bits_tile")}
+    table = torch.from_numpy(c["table"]).to(card)
+    total = torch.from_numpy(c["total_rows"]).to(card)
+    istart, delta, u, _ = kernels.row_engine(table, total, **kw)
+    for fn, name in ((lambda: kernels.row_engine(table, total, **kw), "row_engine_"),
+                     (lambda: kernels.rank_prefix(istart, delta, budget=1 << 20,
+                                                  plus_iota=True, dcum=u),
+                      "rank_prefix_kernel")):
+        ops = device_ops(fn, name)
+        assert ops["kernels"] == ops["named"] == 1 and ops["memsets"] <= 1, ops
 
 
 @pytest.mark.parametrize("cfg", ["16x16", "32x16", "64x32", "64x64"])

@@ -294,3 +294,18 @@ def test_stage_chain_gives_render_image(small_bench):
     sums = stages.grad_reduction(stages.composite_bwd(inst, binning.tile_start, cot),
                                  binning)
     assert sums.shape == (params.capacity, 9) and bool(torch.isfinite(sums).all())
+
+
+def test_profile_binning_stages_rebuild_bin_gaussians():
+    """gsjax_torch.tools.profile_binning on the CPU at a small scene: every
+    stage runs and the stages rebuild bin_gaussians' stream (its own
+    check); nothing is timed off the card."""
+    from gsjax_torch.tools import profile_binning
+
+    rows = profile_binning.run(device="cpu", n=2000, width=128, height=96,
+                               budgets=dict(max_instances=8192, max_rows=4096))
+    stages = [r["stage"] for r in rows if "stage" in r]
+    assert stages[:11] == [s for s in stages if s[0].isdigit()]
+    assert {"row_engine", profile_binning.RANK_FORM, "bin_gaussians (whole)"} <= set(stages)
+    assert all(r["device_ms"] == "not measured" for r in rows if "stage" in r)
+    assert 0 < rows[-1]["num_instances"] <= 8192
