@@ -36,6 +36,25 @@ Phases, one JSON line each (any failure exits non-zero):
            that scene, from a perturbed copy: 3 warm-up and 10 timed steps
            (loss per step, ms per step, pixels/s, host ms); all five
            kernels' launch counts over those steps; a profile of one step
+  densify  on the train phase's state (500k Gaussians at capacity 500k):
+           densify_and_prune at full capacity (candidates dropped),
+           grow_capacity to 2^20 (the trainer grows when a densify drops),
+           densify of the grown state (clones and splits, nothing
+           dropped), reset_opacity and a train step on the result with
+           budgets sized by pow2_budget; each densify against the same
+           call on the CPU with the card generator's draws (counts, mask
+           and copied rows exact, split xyz and scaling within 1e-6,
+           moments moved or zero); densify and grow ms on the card
+  scene    a COLMAP binary model of the bench scene (8 PINHOLE views at
+           1920x1080 on orbit poses, its 500k centres and DC colours, its
+           exact renders as PNG) read into a Scene on the card, and once
+           with a 100k sky shell; extent, centre and banks against numpy;
+           create_from_pcd with the native 3-NN, and the torch 3-NN on the
+           card against the native one (rtol 1e-4, atol 1e-6); 3 train
+           steps picking views from the bank on the device, a densify, a
+           PLY saved and reloaded through load_iteration, an npz
+           checkpoint saved and reloaded (every tensor equal); seconds of
+           every part
   cull     at the bench origin view: for each warp shape (32x1, 16x2, 8x4)
            the (instance, warp) pairs the exact walk visits, those the
            cull keeps and those with a live pixel; the culled composite
@@ -880,7 +899,7 @@ def phase_train(torch, kernels, random_scene, camera, gt, dev):
     the default OptimizationConfig. 3 warm-up steps, then 10 timed ones;
     every kernel's launch count over those 13 steps. Then one more step
     records each kernel's arguments, and one is profiled. Returns (the
-    recorded calls, the launch counts)."""
+    recorded calls, the launch counts, the state after the steps)."""
     import numpy as np
 
     from gsjax_torch.config import OptimizationConfig, RasterConfig
@@ -964,7 +983,363 @@ def phase_train(torch, kernels, random_scene, camera, gt, dev):
         holder[0], _ = step(holder[0])
 
     emit(dict(phase="profile", path="train_step", **profile_table(one_step, ms)))
-    return calls, launches
+    return calls, launches, holder[0]
+
+
+# --- densification and the scene path ------------------------------------------
+
+DENSIFY_EXTENT = 2.0  # percent_dense * extent = 0.02 splits the larger half
+DENSIFY_SEED = 7
+GROWN_CAPACITY = 1 << 20
+SCENE_ANGLES = (-0.35, -0.25, -0.15, -0.05, 0.05, 0.15, 0.25, 0.35)
+SCENE_STEPS = 3
+SKY_GAUSSIANS = 100_000
+SPLIT_ATOL = 1e-6
+PROBE_ROWS = 1 << 23
+
+
+def timed(torch, fn):
+    """(fn(), seconds) with the card synchronized on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def stats_dict(stats) -> dict:
+    return {k: int(getattr(stats, k)) for k in
+            ("n_alive", "n_cloned", "n_split", "n_pruned", "n_dropped")}
+
+
+def check_densify_on_cpu(torch, before, out, noise, kw, where):
+    """densify_and_prune on the CPU from the same arrays and noise as the
+    card's call `out`: counts, alive mask and every copied row exact; the
+    split children's xyz and scaling within SPLIT_ATOL; kept rows' moments
+    exact, new rows' zero. Returns the largest split differences."""
+    from gsjax_torch.interop import train_state_from_numpy, train_state_to_numpy
+    from gsjax_torch.model import PARAM_NAMES
+    from gsjax_torch.train.densify import densify_and_prune
+
+    host = train_state_from_numpy(train_state_to_numpy(before), "cpu")
+    want = densify_and_prune(host.params, host.aux, host.opt, noise=noise.cpu(), **kw)
+    got_stats, want_stats = stats_dict(out[3]), stats_dict(want[3])
+    if got_stats != want_stats:
+        raise AssertionError(f"{where}: card {got_stats} != cpu {want_stats}")
+    if not torch.equal(out[1].alive.cpu(), want[1].alive):
+        raise AssertionError(f"{where}: alive masks differ")
+    s = want_stats
+    n_keep = s["n_alive"] + s["n_pruned"] + s["n_dropped"] - s["n_cloned"] - 2 * s["n_split"]
+    lo = n_keep + s["n_cloned"]
+    hi = lo + 2 * s["n_split"]
+    split_err = {}
+    for k in PARAM_NAMES:
+        got, ref = getattr(out[0], k).detach().cpu(), getattr(want[0], k).detach()
+        if k in ("xyz", "scaling"):
+            split_err[k] = float((got[lo:hi] - ref[lo:hi]).abs().max()) if hi > lo else 0.0
+            if not split_err[k] <= SPLIT_ATOL:
+                raise AssertionError(f"{where}: split {k} differs by {split_err[k]}")
+            got, ref = torch.cat([got[:lo], got[hi:]]), torch.cat([ref[:lo], ref[hi:]])
+        if not torch.equal(got, ref):
+            raise AssertionError(f"{where}: copied rows of {k} differ")
+        for moments, ref_moments in ((out[2].mu, want[2].mu), (out[2].nu, want[2].nu)):
+            m = moments[k].cpu()
+            if not torch.equal(m, ref_moments[k]) or bool(m[n_keep:].any()):
+                raise AssertionError(f"{where}: moments of {k} differ or new rows not 0")
+    return split_err
+
+
+def sized_config(torch, render, params, aux, cams, sh):
+    """32x32 tiles with budgets pow2_budget of the largest pair and row
+    counts over `cams`, measured by renders with PROBE_ROWS rows (the pair
+    count is exact whenever the rows fit, whatever the pair budget)."""
+    from gsjax_torch.config import MIN_RASTER_BUDGET, RasterConfig, pow2_budget
+
+    probe = RasterConfig(tile_w=32, tile_h=32, max_instances=MIN_RASTER_BUDGET,
+                         max_rows=PROBE_ROWS)
+    peaks = [0, 0]
+    with torch.no_grad():
+        for cam in cams:
+            out = render(params, cam, active_sh_degree=sh,
+                         bg_color=torch.zeros(3, device=params.device), cfg=probe,
+                         alive=aux.alive)
+            peaks = [max(peaks[0], int(out.num_instances)), max(peaks[1], int(out.num_rows))]
+    if peaks[1] > PROBE_ROWS:
+        raise AssertionError(f"probe: rows overflow ({peaks})")
+    return RasterConfig(tile_w=32, tile_h=32, max_instances=pow2_budget(peaks[0]),
+                        max_rows=pow2_budget(peaks[1])), peaks
+
+
+def checked_steps(torch, kernels, state, views, cfg, where, spatial_lr_scale):
+    """train_step() once per (camera, gt) in `views`, launch counts set to
+    0 just before and read just after: every main-path kernel launched,
+    losses finite, no budget overflow. Returns (state, losses, launches)."""
+    from gsjax_torch.config import OptimizationConfig
+    from gsjax_torch.train.step import train_step
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    losses, counts = [], []
+    for cam, gt in views:
+        state, m = train_step(state, cam, gt, torch.zeros(3, device=gt.device),
+                              active_sh_degree=3, opt_cfg=OptimizationConfig(),
+                              raster_cfg=cfg, spatial_lr_scale=spatial_lr_scale)
+        losses.append(m.loss)
+        counts.append((m.num_instances, m.num_rows))
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    missing = [k for k in kernels.KERNEL_NAMES if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{where}: kernels not launched: {missing}")
+    losses = [float(v) for v in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{where}: non-finite loss {losses}")
+    for n_inst, n_rows in counts:
+        if int(n_inst) > cfg.max_instances or int(n_rows) > cfg.max_rows:
+            raise AssertionError(f"{where}: budget overflow ({int(n_inst)}, {int(n_rows)})")
+    return state, losses, launches
+
+
+def phase_densify(torch, kernels, render, state, camera, gt):
+    """Densification on the bench scene's state after the train phase
+    (500k Gaussians at capacity 500k, the accumulated statistics): one
+    densify at full capacity (candidates dropped), growth to 2^20 by the
+    trainer's rule (it grows when a densify drops; gsjax/train/trainer.py:
+    679-686), a densify of the grown state (nothing dropped), an opacity
+    reset and a training step on the result. Each densify is held to the
+    same call on the CPU with the card's generator's draws injected."""
+    from gsjax_torch.config import OptimizationConfig
+    from gsjax_torch.tools.common import cuda_ms
+    from gsjax_torch.train.densify import densify_and_prune, reset_opacity, split_noise
+    from gsjax_torch.train.step import TrainState
+    from gsjax_torch.train.trainer import grow_capacity
+
+    t_phase = time.perf_counter()
+    dev = camera.device
+    opt_cfg = OptimizationConfig()
+    kw = dict(grad_threshold=opt_cfg.densify_grad_threshold, min_opacity=0.005,
+              extent=DENSIFY_EXTENT, max_screen_size=20,
+              percent_dense=opt_cfg.percent_dense)
+
+    def generator(seed):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def densify(st, seed):
+        return densify_and_prune(st.params, st.aux, st.opt, generator(seed), **kw)
+
+    line = {"phase": "densify", "gaussians": int(state.aux.n_alive()),
+            "capacity": state.params.capacity, "extent": DENSIFY_EXTENT,
+            "generator_seed": DENSIFY_SEED, **kw,
+            "hot": int(((state.aux.xyz_grad_accum / state.aux.denom.clamp(min=1.0))
+                        >= kw["grad_threshold"]).logical_and(state.aux.alive).sum())}
+    full, line["densify_s"] = timed(torch, lambda: densify(state, DENSIFY_SEED))
+    line["full_capacity"] = stats_dict(full[3])
+    if line["full_capacity"]["n_dropped"] <= 0:
+        raise AssertionError(f"densify at full capacity dropped nothing: {line}")
+    grown, line["grow_s"] = timed(torch, lambda: grow_capacity(state, GROWN_CAPACITY))
+    line["grown_capacity"] = GROWN_CAPACITY
+    regrown, _ = timed(torch, lambda: densify(grown, DENSIFY_SEED + 1))
+    line["after_growth"] = s = stats_dict(regrown[3])
+    if s["n_dropped"] != 0 or s["n_cloned"] <= 0 or s["n_split"] <= 0:
+        raise AssertionError(f"densify after growth: {s}")
+    line["cpu_split_max_abs_err"] = {
+        where: check_densify_on_cpu(
+            torch, before, out,
+            split_noise(before.params.capacity, dev, generator(seed)), kw, where)
+        for where, before, out, seed in (
+            ("full_capacity", state, full, DENSIFY_SEED),
+            ("after_growth", grown, regrown, DENSIFY_SEED + 1))}
+    params, opt = reset_opacity(regrown[0], regrown[2])
+    if not float(torch.sigmoid(params.opacity.detach()).max()) <= 0.01 + 1e-6:
+        raise AssertionError("reset_opacity left an opacity above 0.01")
+    dense = TrainState(params=params, opt=opt, aux=regrown[1], step=state.step)
+    cfg, line["probe_peaks"] = sized_config(torch, render, params, regrown[1], [camera], 3)
+    line["budgets"] = [cfg.max_instances, cfg.max_rows]
+    _, line["loss"], line["launches"] = checked_steps(
+        torch, kernels, dense, [(camera, gt)], cfg, "densify", SPATIAL_LR_SCALE)
+    line["densify_ms"] = {
+        "full_capacity": cuda_ms(lambda: densify(state, DENSIFY_SEED), reps=3),
+        "after_growth": cuda_ms(lambda: densify(grown, DENSIFY_SEED + 1), reps=3)}
+    line["grow_capacity_ms"] = cuda_ms(lambda: grow_capacity(state, GROWN_CAPACITY), reps=3)
+    line["phase_seconds"] = time.perf_counter() - t_phase
+    emit(line)
+
+
+def write_colmap_scene(torch, root, params, views, render):
+    """A COLMAP binary model of the bench scene: one PINHOLE camera per view
+    at the views' size, the scene's centres with the colours of its DC
+    term as points3D, and the exact renders of the scene from the views as
+    PNG images. Returns each view's (qvec, tvec)."""
+    import os
+
+    import numpy as np
+    from PIL import Image
+
+    from gsjax_torch.config import RasterConfig
+    from gsjax_torch.core.cameras import fov2focal
+    from gsjax_torch.core.sh import SH2RGB
+    from gsjax_torch.data import colmap
+
+    sparse = os.path.join(root, "sparse", "0")
+    os.makedirs(sparse)
+    os.makedirs(os.path.join(root, "images"))
+    cfg = RasterConfig(tile_w=32, tile_h=32, **BENCH_BUDGETS)
+    cams, images, poses = {}, {}, []
+    for i, cam in enumerate(views, start=1):
+        fov_x = 2.0 * math.atan(float(cam.tan_fovx))
+        fov_y = 2.0 * math.atan(float(cam.tan_fovy))
+        cams[i] = colmap.ColmapCamera(i, "PINHOLE", cam.width, cam.height, np.array(
+            [fov2focal(fov_x, cam.width), fov2focal(fov_y, cam.height),
+             cam.width / 2.0, cam.height / 2.0]))
+        view = cam.view.cpu().numpy().astype(np.float64)
+        qvec, tvec = colmap.rotmat2qvec(view[:3, :3]), view[:3, 3]
+        poses.append((qvec, tvec))
+        images[i] = colmap.ColmapImage(i, qvec, tvec, i, f"view_{i:02d}.png")
+        with torch.no_grad():
+            img = render(params, cam, active_sh_degree=3,
+                         bg_color=torch.zeros(3, device=cam.device), cfg=cfg).image
+        u8 = (img.clamp(0, 1) * 255).round().to(torch.uint8).permute(1, 2, 0).cpu().numpy()
+        Image.fromarray(u8).save(os.path.join(root, "images", f"view_{i:02d}.png"),
+                                 compress_level=1)
+    colmap.write_cameras_binary(cams, os.path.join(sparse, "cameras.bin"))
+    colmap.write_images_binary(images, os.path.join(sparse, "images.bin"))
+    n = BENCH_N
+    xyz = params.xyz.detach()[:n].cpu().numpy().astype(np.float64)
+    rgb = np.clip(SH2RGB(params.features_dc.detach()[:n, 0].cpu().numpy()), 0, 1) * 255
+    colmap.write_points3d_binary(xyz, np.round(rgb), np.zeros(n),
+                                 os.path.join(sparse, "points3D.bin"))
+    return poses
+
+
+def phase_scene(torch, kernels, render, params):
+    """The scene path from a dataset on disk: a COLMAP model of the bench
+    scene (write_colmap_scene) read into a Scene on the card (native 3-NN
+    init), once more with the sky shell; the extent, centre and banks held
+    to a numpy recomputation; the native 3-NN against the torch 3-NN on the
+    card; three train steps that pick their views from the bank on the
+    device, a densify, a PLY save reloaded through load_iteration, and an
+    npz checkpoint saved and reloaded."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from gsjax_torch import native
+    from gsjax_torch.config import ModelConfig, OptimizationConfig
+    from gsjax_torch.data import colmap
+    from gsjax_torch.knn import mean_knn_dist2
+    from gsjax_torch.model import PARAM_NAMES, create_from_pcd
+    from gsjax_torch.scene import Scene
+    from gsjax_torch.synthetic import orbit_camera
+    from gsjax_torch.train.checkpoint import load_checkpoint, save_checkpoint
+    from gsjax_torch.train.densify import densify_and_prune
+    from gsjax_torch.train.optimizer import adam_init
+    from gsjax_torch.train.step import TrainState
+
+    t_phase = time.perf_counter()
+    dev = params.device
+    seconds = {}
+    line = {"phase": "scene", "gaussians": BENCH_N, "views": len(SCENE_ANGLES),
+            "width": BENCH_W, "height": BENCH_H, "images": "png"}
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        views = [orbit_camera(a, width=BENCH_W, height=BENCH_H, device=dev)
+                 for a in SCENE_ANGLES]
+        poses, seconds["write_dataset"] = timed(
+            torch, lambda: write_colmap_scene(torch, root, params, views, render))
+        cfg = ModelConfig(source_path=root, model_path=os.path.join(root, "model"),
+                          sh_degree=3, resolution=1)
+        scene, seconds["scene"] = timed(torch, lambda: Scene(cfg, device=dev))
+        line["native_3nn"] = native.load_native() is not None
+        if not line["native_3nn"]:
+            line["native_unavailable"] = native.unavailable_reason
+
+        centers = np.stack([-colmap.qvec2rotmat(q).T @ t for q, t in poses])
+        radius = 1.1 * float(np.linalg.norm(centers - centers.mean(0), axis=1).max())
+        bank = scene.get_train_banks()[0]
+        shapes = {k: list(getattr(bank, k).shape) for k in
+                  ("views", "full_projs", "centers", "gt_rgb", "alpha")}
+        want = {"views": [8, 4, 4], "full_projs": [8, 4, 4], "centers": [8, 3],
+                "gt_rgb": [8, 3, BENCH_H, BENCH_W], "alpha": [8, 1, BENCH_H, BENCH_W]}
+        if (len(scene.get_train_banks()) != 1 or shapes != want
+                or not math.isclose(scene.cameras_extent, radius, rel_tol=1e-5)
+                or not np.allclose(scene.scene_center, centers.mean(0), rtol=0, atol=1e-5)):
+            raise AssertionError(f"scene: extent {scene.cameras_extent} vs {radius}, "
+                                 f"centre {scene.scene_center} vs {centers.mean(0)}, "
+                                 f"banks {shapes}")
+        line.update(cameras_extent=scene.cameras_extent, numpy_extent=radius,
+                    scene_center=scene.scene_center.tolist(), bank_shapes=shapes,
+                    capacity=scene.params.capacity, alive=int(scene.aux.n_alive()))
+
+        pcd = scene.info.point_cloud
+        _, seconds["create_from_pcd"] = timed(
+            torch, lambda: create_from_pcd(pcd.points, pcd.colors, 3, device=dev))
+        pts = np.asarray(pcd.points, np.float32)
+        ref, seconds["native_3nn"] = timed(torch, lambda: native.mean_knn_dist2_native(pts))
+        ours, seconds["torch_3nn_card"] = timed(
+            torch, lambda: mean_knn_dist2(torch.as_tensor(pts, device=dev)))
+        if ref is not None:
+            ours = ours.cpu().numpy()
+            line["knn_max_rel_err"] = float((np.abs(ours - ref) / np.maximum(ref, 1e-30)).max())
+            if not np.allclose(ours, ref, rtol=1e-4, atol=1e-6):
+                raise AssertionError(f"torch 3-NN vs native: {line['knn_max_rel_err']}")
+
+        sky_cfg = ModelConfig(source_path=root, model_path=os.path.join(root, "sky"),
+                              sh_degree=3, resolution=1, sky_gaussians=SKY_GAUSSIANS)
+        sky, seconds["scene_sky"] = timed(torch, lambda: Scene(sky_cfg, device=dev))
+        line["sky"] = {"gaussians": SKY_GAUSSIANS, "capacity": sky.params.capacity,
+                       "alive": int(sky.aux.n_alive())}
+        if line["sky"]["alive"] != BENCH_N + SKY_GAUSSIANS:
+            raise AssertionError(f"sky shell: {line['sky']}")
+        del sky
+
+        state = TrainState(params=scene.params, opt=adam_init(scene.params), aux=scene.aux,
+                           step=torch.ones((), dtype=torch.int32, device=dev))
+        picks = [bank.pick(torch.tensor(i % bank.count, device=dev))
+                 for i in range(SCENE_STEPS)]
+        rcfg, line["probe_peaks"] = sized_config(
+            torch, render, state.params, state.aux, [cam for cam, _ in picks], 3)
+        line["budgets"] = [rcfg.max_instances, rcfg.max_rows]
+        (state, line["losses"], line["launches"]), seconds["train_steps"] = timed(
+            torch, lambda: checked_steps(torch, kernels, state, picks, rcfg, "scene",
+                                         scene.cameras_extent))
+        opt_cfg = OptimizationConfig()
+        out, seconds["densify"] = timed(torch, lambda: densify_and_prune(
+            state.params, state.aux, state.opt, torch.Generator(device=dev).manual_seed(0),
+            grad_threshold=opt_cfg.densify_grad_threshold, min_opacity=0.005,
+            extent=scene.cameras_extent, max_screen_size=0,
+            percent_dense=opt_cfg.percent_dense))
+        line["densify"] = stats_dict(out[3])
+        state = TrainState(params=out[0], opt=out[2], aux=out[1], step=state.step)
+
+        _, seconds["save_ply"] = timed(
+            torch, lambda: scene.save(SCENE_STEPS, state.params, state.aux.alive))
+        back, seconds["reload_scene"] = timed(
+            torch, lambda: Scene(cfg, load_iteration=SCENE_STEPS, device=dev))
+        n_alive, alive = int(state.aux.n_alive()), state.aux.alive
+        if int(back.aux.n_alive()) != n_alive or not all(
+                torch.equal(getattr(back.params, k)[:n_alive], getattr(state.params, k)[alive])
+                for k in PARAM_NAMES):
+            raise AssertionError("PLY reload differs from the saved alive rows")
+        ckpt = os.path.join(root, "model", f"chkpnt{SCENE_STEPS}.npz")
+        _, seconds["save_ckpt"] = timed(
+            torch, lambda: save_checkpoint(ckpt, state, 3, scene.cameras_extent))
+        (loaded, sh, lr), seconds["load_ckpt"] = timed(
+            torch, lambda: load_checkpoint(ckpt, dev))
+        pairs = [(getattr(loaded.params, k), getattr(state.params, k)) for k in PARAM_NAMES]
+        pairs += [(loaded.opt.mu[k], state.opt.mu[k]) for k in PARAM_NAMES]
+        pairs += [(loaded.opt.nu[k], state.opt.nu[k]) for k in PARAM_NAMES]
+        pairs += [(getattr(loaded.aux, k), getattr(state.aux, k))
+                  for k in ("alive", "max_radii2d", "xyz_grad_accum", "denom")]
+        pairs += [(loaded.opt.count, state.opt.count), (loaded.step, state.step)]
+        if (sh, lr) != (3, scene.cameras_extent) or not all(
+                a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+            raise AssertionError("checkpoint reload differs")
+        line["ckpt_mb"] = os.path.getsize(ckpt) / 2**20
+    line["seconds"] = seconds
+    line["phase_seconds"] = time.perf_counter() - t_phase
+    emit(line)
 
 
 def main() -> int:
@@ -1079,11 +1454,16 @@ def main() -> int:
     gt = results[("origin", False)].image
     del results
     tool_kernels.reset_launch_counts()
-    train_calls, train_launches = phase_train(
+    train_calls, train_launches, state = phase_train(
         torch, kernels, random_scene, views["origin"], gt, dev)
     main_launches["step"] = dict(tool_kernels.launch_counts)
     if any(main_launches["views"].values()) or any(main_launches["step"].values()):
         raise AssertionError(f"a tools kernel ran on the main path: {main_launches}")
+
+    # --- densification and the scene path at full width ------------------------
+    phase_densify(torch, kernels, render, state, views["origin"], gt)
+    del state
+    phase_scene(torch, kernels, render, params)
 
     # --- the cull: warp counts, the twins, main against twin in turns ---------
     twin_ms = phase_cull(torch, kernels, tool_kernels, origin_calls, train_calls)

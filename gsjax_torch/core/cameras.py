@@ -21,6 +21,16 @@ ZNEAR = 0.01
 ZFAR = 100.0
 
 
+def fov2focal(fov: float, pixels: float) -> float:
+    """(reference: utils/graphics_utils.py:73-74)"""
+    return pixels / (2.0 * math.tan(fov / 2.0))
+
+
+def focal2fov(focal: float, pixels: float) -> float:
+    """(reference: utils/graphics_utils.py:76-77)"""
+    return 2.0 * math.atan(pixels / (2.0 * focal))
+
+
 def world_to_view(
     R: np.ndarray,
     t: np.ndarray,

@@ -112,3 +112,8 @@ def eval_sh(deg: int, sh: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
 def RGB2SH(rgb: torch.Tensor) -> torch.Tensor:
     """(reference: utils/sh_utils.py:114-115)"""
     return (rgb - 0.5) / C0
+
+
+def SH2RGB(sh):
+    """(reference: utils/sh_utils.py:117-118); a tensor or numpy array."""
+    return sh * C0 + 0.5

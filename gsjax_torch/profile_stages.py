@@ -18,21 +18,26 @@ alone, ITERS times back to back, on the outputs of the stage before it:
   composite bwd kernel      composite_backward, on dC = 1, dT = 1
   grad reduction            inverse tile sort, owner regroup, segment_sum
 
-    python -m gsjax_torch.profile_stages
+    python -m gsjax_torch.profile_stages [--ply point_cloud.ply [--orbit 0.6]]
+
+--ply profiles a trained model's PLY instead of the random scene, from
+the quality scene's orbit camera at angle --orbit (tools/bench_trained.py's
+pose family), with budgets sized to the view's counts (+3 %).
 
 One JSON line per stage: event ms (CUDA events over ITERS runs, host
 launch work included), device ms (torch.profiler: all of the stage's
 device work, mean of DEVICE_REPS runs) and its device kernel count per
-run; then the rect and live instance counts. The JAX file's --ply and
---orbit wait for the port's PLY loader.
+run; then the rect and live instance counts.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 
 import torch
 
+from gsjax_torch.config import RasterConfig, pow2_budget, resolve_device
 from gsjax_torch.model import PARAM_NAMES
 from gsjax_torch.render import kernels
 from gsjax_torch.render.api import depth_sorted_bins, render
@@ -40,12 +45,17 @@ from gsjax_torch.render.binning import num_tiles
 from gsjax_torch.render.common import build_inst_data, untile_image
 from gsjax_torch.render.composite import composite_cotangent, owner_sums
 from gsjax_torch.render.preprocess import preprocess
+from gsjax_torch.scene import load_ply_model
 from gsjax_torch.tools.common import (
+    HEIGHT,
     SH_DEGREE,
+    TILE,
+    WIDTH,
     bench_scene,
     cuda_ms,
     device_ms,
     require_card,
+    trained_orbit_camera,
 )
 from gsjax_torch.train.loss import l1_loss
 
@@ -173,10 +183,49 @@ def profile(stages: Stages, iters: int = ITERS,
             "budget": stages.cfg.max_instances, "live_instances": int(ts[-1])}
 
 
-def main() -> None:
+PROBE_BUDGET = 2 ** 22
+
+
+def ply_scene(path: str, orbit: float = 0.6, width: int = WIDTH,
+              height: int = HEIGHT, device=None, probe_budget: int = PROBE_BUDGET):
+    """(params, aux, camera, cfg, sh_degree) of a model PLY seen from the
+    trained-scene orbit camera: capacity the next power of two (at least
+    1024), budgets pow2_budget of the view's pair and row counts with 3 %
+    headroom, measured by one render at `probe_budget`."""
+    dev = resolve_device(device)
+    params, aux = load_ply_model(path, device=dev)
+    sh_degree = params.max_sh_degree
+    camera = trained_orbit_camera(orbit, width, height, device=dev)
+    probe_cfg = RasterConfig(tile_w=TILE, tile_h=TILE, max_instances=probe_budget,
+                             max_rows=probe_budget)
+    with torch.no_grad():
+        probe = render(params, camera, active_sh_degree=sh_degree,
+                       bg_color=torch.zeros(3, device=dev), cfg=probe_cfg,
+                       alive=aux.alive)
+    cfg = RasterConfig(tile_w=TILE, tile_h=TILE,
+                       max_instances=pow2_budget(int(probe.num_instances), 1.03),
+                       max_rows=pow2_budget(int(probe.num_rows), 1.03))
+    return params, aux, camera, cfg, sh_degree
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ply", default=None,
+                    help="profile a trained model's PLY instead of the random scene")
+    ap.add_argument("--orbit", type=float, default=0.6,
+                    help="orbit angle of the --ply view (radians)")
+    args = ap.parse_args(argv)
     require_card("profile_stages")
-    params, aux, camera, cfg = bench_scene()
-    result = profile(Stages(params, aux, camera, cfg))
+    if args.ply:
+        params, aux, camera, cfg, sh_degree = ply_scene(args.ply, args.orbit)
+        print(json.dumps({"ply": args.ply, "gaussians": int(aux.n_alive()),
+                          "capacity": params.capacity, "sh_degree": sh_degree,
+                          "orbit": args.orbit, "max_instances": cfg.max_instances,
+                          "max_rows": cfg.max_rows}), flush=True)
+    else:
+        params, aux, camera, cfg = bench_scene()
+        sh_degree = SH_DEGREE
+    result = profile(Stages(params, aux, camera, cfg, sh_degree))
     print(json.dumps({"device": torch.cuda.get_device_name(0)}), flush=True)
     for row in result["stages"]:
         print(json.dumps(row), flush=True)

@@ -13,9 +13,11 @@ from __future__ import annotations
 import dataclasses
 import time
 
+import numpy as np
 import torch
 
 from gsjax_torch.config import RasterConfig
+from gsjax_torch.core.cameras import Camera
 from gsjax_torch.render.api import depth_sorted_bins
 from gsjax_torch.render.binning import Binning, num_tiles
 from gsjax_torch.render.common import build_inst_data
@@ -47,6 +49,32 @@ def bench_scene(device=None, n: int = BENCH_N, width: int = WIDTH,
     camera = look_at_origin_camera(width, height, device=device)
     cfg = RasterConfig(tile_w=TILE, tile_h=TILE, **budgets)
     return params, aux, camera, cfg
+
+
+def trained_orbit_camera(angle: float, width: int, height: int,
+                         fov_x: float = 0.85, radius: float = 4.2,
+                         elev: float = 0.45, device=None) -> Camera:
+    """COLMAP-convention orbit camera looking at the quality scene's center
+    (0, 0.45, 0): the pose family of tools/synthetic_scene.camera_pose, as
+    tools/bench_trained.py's _orbit_camera builds it."""
+    target = np.array([0.0, 0.45, 0.0])
+    pos = target + radius * np.array(
+        [np.sin(angle) * np.cos(elev), np.sin(elev), np.cos(angle) * np.cos(elev)]
+    )
+    fwd = target - pos
+    fwd /= np.linalg.norm(fwd)
+    up_gl = np.array([0.0, 1.0, 0.0])
+    right = np.cross(fwd, up_gl)
+    right /= np.linalg.norm(right)
+    up = np.cross(right, fwd)
+    # world->cam rows, COLMAP convention (x right, y down, z forward).
+    R_w2c = np.stack([right, -up, fwd], axis=0)
+    t = -R_w2c @ pos
+    fov_y = 2.0 * np.arctan(np.tan(fov_x / 2.0) * height / width)
+    return Camera.create(
+        R_w2c.T.astype(np.float32), t.astype(np.float32),
+        fov_x=fov_x, fov_y=float(fov_y), width=width, height=height, device=device,
+    )
 
 
 @dataclasses.dataclass

@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from gsjax_torch.core.cameras import Camera
-from gsjax_torch.interop import params_from_numpy
+from gsjax_torch.interop import densify_stats_from_numpy, params_from_numpy
+from gsjax_torch.model import create_from_pcd
 from gsjax_torch.synthetic import look_at_origin_camera, orbit_camera, random_scene
 
 torch.set_num_threads(1)
@@ -89,6 +90,12 @@ ENTRY_POINTS = {
     "params_from_numpy": lambda **kw: params_from_numpy(
         {k: np.zeros((2, 3), np.float32) for k in (
             "xyz", "features_dc", "features_rest", "scaling", "rotation", "opacity")},
+        **kw),
+    "create_from_pcd": lambda **kw: create_from_pcd(
+        np.random.default_rng(0).uniform(-1, 1, (8, 3)), np.full((8, 3), 0.5), 1,
+        knn_dist2=np.ones(8, np.float32), **kw),
+    "densify_stats_from_numpy": lambda **kw: densify_stats_from_numpy(
+        dict.fromkeys(("n_alive", "n_cloned", "n_split", "n_pruned", "n_dropped"), 0),
         **kw),
 }
 
