@@ -36,6 +36,15 @@ Phases, one JSON line each (any failure exits non-zero):
            that scene, from a perturbed copy: 3 warm-up and 10 timed steps
            (loss per step, ms per step, pixels/s, host ms); all five
            kernels' launch counts over those steps; a profile of one step
+  graph    the same 10 steps on the bench scene, views cycling through a
+           CameraBank of the four main-phase views, eagerly (twice) and as
+           one window of replays of the captured step (train_steps on the
+           card): bitwise against the eager steps where two eager windows
+           agree bit for bit (else the largest difference per parameter in
+           lr units); ms per step, device busy ms and idle share of each;
+           the capture's warm-up and capture ms and its pool's bytes; the
+           kernels' launches (capture count times replays) cross-checked
+           by torch.profiler
   densify  on the train phase's state (500k Gaussians at capacity 500k):
            densify_and_prune at full capacity (candidates dropped),
            grow_capacity to 2^20 (the trainer grows when a densify drops),
@@ -55,6 +64,18 @@ Phases, one JSON line each (any failure exits non-zero):
            PLY saved and reloaded through load_iteration, an npz
            checkpoint saved and reloaded (every tensor equal); seconds of
            every part
+  trainer  `python -m gsjax_torch.cli.train` (through main) on a COLMAP
+           dataset of the bench scene (as the scene phase writes it) with
+           --eval, 300 iterations: densify from 100 every 100, an opacity
+           reset at 200, checkpoints at 200 and 300, a test at 300; then
+           cli.render of the test view and cli.metrics (results.json: SSIM,
+           PSNR, LPIPS null); ms per window, captures, densify and budget
+           events, evaluations, host work; the main kernels' launches over
+           the run; then a run resumed from the checkpoint at 200 (without
+           TensorBoard), whose checkpoint at 300 must equal the straight
+           run's bit for bit where the graph phase found the eager step
+           reproducible. Runs last, after every profiled measurement, just
+           before the kernels line
   cull     at the bench origin view: for each warp shape (32x1, 16x2, 8x4)
            the (instance, warp) pairs the exact walk visits, those the
            cull keeps and those with a live pixel; the culled composite
@@ -90,12 +111,14 @@ Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
 import subprocess
 import sys
 import time
+import warnings
 
 # The card's published peaks (H100 SXM data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -109,6 +132,13 @@ COMPOSITE_FLOP_PER_PAIR = 13
 BACKWARD_FLOP_PER_LIVE_PAIR = 43
 SCENE_NOISE_SIGMA = 0.1
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10
+# The window the graph phase runs eagerly and as replays of the captured step.
+GRAPH_STEPS = 10
+# Where two eager windows differ, the graph's difference from one of them,
+# per parameter in lr units, may be at most this multiple of theirs.
+GRAPH_LR_MULTIPLE = 4
+# Steps of the trainer phase's run through the training CLI.
+TRAINER_ITERATIONS = 300
 SPATIAL_LR_SCALE = 1.0
 
 BENCH_N = 500_000
@@ -986,6 +1016,151 @@ def phase_train(torch, kernels, random_scene, camera, gt, dev):
     return calls, launches, holder[0]
 
 
+def view_bank(torch, views, images):
+    """A CameraBank of the views whose ground truths are the images
+    (rounded to uint8, opaque)."""
+    import numpy as np
+
+    from gsjax_torch.scene import CameraBank
+
+    rgbs = [(img.clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy()
+            for img in images]
+    alphas = [np.full((1, *rgb.shape[1:]), 255, np.uint8) for rgb in rgbs]
+    return CameraBank.from_cameras(list(views), rgbs, alphas)
+
+
+def states_equal(torch, steps, a, b, ma=None, mb=None) -> bool:
+    """Every tensor of two train states (and of their metrics) bit for bit."""
+    pairs = list(zip(steps.state_tensors(a), steps.state_tensors(b)))
+    if ma is not None:
+        pairs += [(getattr(ma, k), getattr(mb, k)) for k in steps.METRIC_DTYPES]
+    return all(torch.equal(x, y) for x, y in pairs)
+
+
+def lr_units(steps, a, b, opt_cfg, spatial_lr_scale) -> dict:
+    """The largest |a - b| of each parameter group, in units of the
+    group's learning rate at a's step."""
+    from gsjax_torch.model import PARAM_NAMES
+    from gsjax_torch.train.optimizer import make_lr_tree
+
+    lr = make_lr_tree(opt_cfg, spatial_lr_scale, a.step)
+    return {k: float((getattr(a.params, k) - getattr(b.params, k)).abs().max() / lr[k])
+            for k in PARAM_NAMES}
+
+
+def phase_graph(torch, kernels, state, bank, cfg):
+    """The same GRAPH_STEPS steps on the bench scene eagerly (scan_steps, a
+    Python loop of _step_core) and as one window of replays of the
+    captured step (train_steps), from copies of one state, views cycling
+    through `bank`. Twice eagerly first: where two eager windows agree
+    bit for bit, the graph's window must equal them bit for bit; where
+    they do not, the largest difference per parameter in lr units is
+    reported, and the graph's may be at most GRAPH_LR_MULTIPLE times the
+    eager pair's for each parameter. Then each timed (CUDA events, host
+    clock), profiled (device busy ms, idle share) and the graph's capture
+    ms and pool bytes; the main kernels' launches in the graph's window
+    from the capture's count times the replays (the capture's two eager
+    warm-up steps apart), cross-checked by torch.profiler."""
+    from gsjax_torch.config import OptimizationConfig
+    from gsjax_torch.tools.common import _profiled, profile_table
+    from gsjax_torch.train import step as steps
+
+    kw = dict(active_sh_degree=3, opt_cfg=OptimizationConfig(), raster_cfg=cfg,
+              spatial_lr_scale=SPATIAL_LR_SCALE)
+    cams = [i % bank.count for i in range(GRAPH_STEPS)]
+    bgs = torch.zeros((GRAPH_STEPS, 3))
+
+    def eager(st):
+        return steps.scan_steps(st, bank, cams, bgs, **kw)
+
+    def graphed(st):
+        return steps.train_steps(st, bank, cams, bgs, **kw)
+
+    start = steps.clone_state(state)
+    ea, ma = eager(steps.clone_state(start))
+    eb, mb = eager(steps.clone_state(start))
+    steps.drop_step_graphs()
+    steps.reset_graph_counts()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    gs, mg = graphed(steps.clone_state(start))
+    torch.cuda.synchronize()
+    launches = dict(steps.replayed_launch_counts)
+    warmup = {k: n - launches[k] for k, n in steps.executed_launches().items()}
+    missing = [k for k in kernels.KERNEL_NAMES if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"graph: kernels not launched by the replays: {missing}")
+    eager_bitwise = states_equal(torch, steps, ea, eb, ma, mb)
+    graph_bitwise = states_equal(torch, steps, ea, gs, ma, mg)
+    losses = [float(v) for v in mg.loss]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"graph: non-finite loss {losses}")
+    if int(mg.num_instances.max()) > cfg.max_instances or int(mg.num_rows.max()) > cfg.max_rows:
+        raise AssertionError("graph: budget overflow")
+    line = {"phase": "graph", "steps": GRAPH_STEPS, "views": bank.count,
+            "eager_bitwise_reproducible": eager_bitwise,
+            "graph_equals_eager_bitwise": graph_bitwise, "losses": losses,
+            "capture": steps.captures[-1], "launches_per_window": launches,
+            "warmup_launches": warmup}
+    if eager_bitwise and not graph_bitwise:
+        raise AssertionError("graph: replays differ from the eager steps, which "
+                             "reproduce bit for bit")
+    if not eager_bitwise:
+        line["eager_vs_eager_lr_units"] = lr_units(steps, ea, eb, kw["opt_cfg"],
+                                                   SPATIAL_LR_SCALE)
+        line["graph_vs_eager_lr_units"] = lr_units(steps, ea, gs, kw["opt_cfg"],
+                                                   SPATIAL_LR_SCALE)
+        over = {k: v for k, v in line["graph_vs_eager_lr_units"].items()
+                if not v <= GRAPH_LR_MULTIPLE * line["eager_vs_eager_lr_units"][k]}
+        if over:
+            raise AssertionError(f"graph: replays differ from eager by more than "
+                                 f"{GRAPH_LR_MULTIPLE}x eager's own spread: {over}")
+
+    # The host syncs of one eager window (torch's sync debug mode warns at
+    # each synchronizing call): a sync per step would keep the host from
+    # running ahead of the card.
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            eager(steps.clone_state(start))
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    line["eager_window_syncs"] = {at: syncs.count(at) for at in sorted(set(syncs))}
+
+    timer = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    for name, fn, st in (("eager", eager, ea), ("graph", graphed, gs)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer[0].record()
+        fn(st)
+        timer[1].record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / GRAPH_STEPS
+        ms = timer[0].elapsed_time(timer[1]) / GRAPH_STEPS
+        prof = profile_table(lambda: fn(st), ms * GRAPH_STEPS)
+        line[name] = {"ms_per_step": ms, "host_ms_per_step": host_ms,
+                      "device_busy_ms_per_step": prof["device_busy_ms"] / GRAPH_STEPS,
+                      "idle_share": prof["idle_share"],
+                      "device_ops_per_step": prof["device_kernels"] / GRAPH_STEPS,
+                      "mpx_per_s": BENCH_W * BENCH_H / ms / 1e3}
+    events = _profiled(lambda: graphed(gs), 1, lambda ev: any(
+        DEVICE_KERNELS["composite_forward"] in e.name for e in ev))
+    if events is None:
+        raise AssertionError("graph: the profiler saw no kernel of the replays")
+    seen = {k: round(sum(DEVICE_KERNELS[k] in e.name for e in events) / GRAPH_STEPS)
+            for k in kernels.KERNEL_NAMES}
+    line["profiler_launches_per_replay"] = seen
+    if seen != steps.captures[-1]["launches"]:
+        raise AssertionError(f"graph: the profiler counts {seen} launches per replay, "
+                             f"the capture {steps.captures[-1]['launches']}")
+    steps.drop_step_graphs()
+    emit(line)
+    return line
+
+
 # --- densification and the scene path ------------------------------------------
 
 DENSIFY_EXTENT = 2.0  # percent_dense * extent = 0.02 splits the larger half
@@ -1342,6 +1517,136 @@ def phase_scene(torch, kernels, render, params):
     emit(line)
 
 
+def checkpoints_equal(a: str, b: str) -> bool:
+    """Every array of two npz checkpoints bit for bit (the host state's
+    pickles included)."""
+    import numpy as np
+
+    with np.load(a) as za, np.load(b) as zb:
+        return sorted(za.files) == sorted(zb.files) and all(
+            za[k].dtype == zb[k].dtype and np.array_equal(za[k], zb[k]) for k in za.files)
+
+
+@contextlib.contextmanager
+def without_tensorboard():
+    """torch.utils.tensorboard made unimportable, so the trainer writes no
+    report; stdout restored after (the train CLI's --quiet replaces it)."""
+    saved, stdout = sys.modules.get("torch.utils.tensorboard"), sys.stdout
+    sys.modules["torch.utils.tensorboard"] = None
+    try:
+        yield
+    finally:
+        sys.stdout = stdout
+        if saved is None:
+            del sys.modules["torch.utils.tensorboard"]
+        else:
+            sys.modules["torch.utils.tensorboard"] = saved
+
+
+def phase_trainer(torch, kernels, render, params, resume_bitwise):
+    """The port's CLIs on a dataset on disk: a COLMAP model of the bench
+    scene (write_colmap_scene) trained by `python -m gsjax_torch.cli.train`
+    (through its main) with --eval for TRAINER_ITERATIONS steps: densify
+    from 100 every 100, an opacity reset at 200, a test evaluation at the
+    end, checkpoints at 200 and at the end; then cli.render of the test
+    view and cli.metrics. Then a second run resumed from the checkpoint at
+    200, whose checkpoint at the end must equal the straight run's bit for
+    bit when `resume_bitwise` (the eager step reproduces bit for bit on
+    this card; the graph phase says). Both runs without TensorBoard (its
+    1080p report costs seconds; tests/test_torch_cli.py drives the
+    writer). Counts set to 0 just before the straight run and read after
+    metrics: every main-path kernel launched; the replays' launches are
+    inferred, the captures' counts times the replays (the graph phase
+    checks that count against torch.profiler; this phase comes after the
+    profiled ones)."""
+    import json
+    import os
+    import tempfile
+
+    from gsjax_torch.cli import metrics as metrics_cli
+    from gsjax_torch.cli import render as render_cli
+    from gsjax_torch.cli import train as train_cli
+    from gsjax_torch.synthetic import orbit_camera
+    from gsjax_torch.train import step as steps
+
+    t_phase = time.perf_counter()
+    dev = params.device
+    line = {"phase": "trainer", "gaussians": BENCH_N, "views": len(SCENE_ANGLES),
+            "width": BENCH_W, "height": BENCH_H, "iterations": TRAINER_ITERATIONS}
+    seconds = {}
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        data = os.path.join(root, "data")
+        views = [orbit_camera(a, width=BENCH_W, height=BENCH_H, device=dev)
+                 for a in SCENE_ANGLES]
+        _, seconds["write_dataset"] = timed(
+            torch, lambda: write_colmap_scene(torch, data, params, views, render))
+        last = TRAINER_ITERATIONS
+        argv = ["-s", data, "-r", "1", "--eval", "--quiet",
+                "--iterations", str(last), "--densify_from_iter", "100",
+                "--densification_interval", "100", "--opacity_reset_interval", "200",
+                "--test_iterations", str(last), "--save_iterations", str(last),
+                "--checkpoint_iterations", "200", str(last)]
+        straight, resumed = os.path.join(root, "straight"), os.path.join(root, "resumed")
+        steps.drop_step_graphs()
+        steps.reset_graph_counts()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        with without_tensorboard():
+            trainer, seconds["train"] = timed(
+                torch, lambda: train_cli.main(argv + ["-m", straight]))
+            _, seconds["render"] = timed(torch, lambda: render_cli.main(
+                ["-m", straight, "--iteration", str(last), "--skip_train", "--quiet"]))
+            _, seconds["metrics"] = timed(torch, lambda: metrics_cli.main(["-m", straight]))
+        torch.cuda.synchronize()
+        launches = steps.executed_launches()
+        line["replayed_launches"] = dict(steps.replayed_launch_counts)
+        line["captures"] = list(steps.captures)
+        missing = [k for k in kernels.KERNEL_NAMES if launches[k] == 0]
+        if missing:
+            raise AssertionError(f"trainer: kernels not launched: {missing}")
+        line["launches"] = launches
+        events = trainer.events
+        line["windows"] = [[e["window"], e["steps"], e["ms"]] for e in events if "window" in e]
+        line["densify"] = [e for e in events if "densify" in e]
+        line["budget_events"] = [e for e in events if "budgets" in e]
+        line["evals"] = [e for e in events if "eval" in e]
+        line["host_work"] = [e for e in events if "host" in e]
+        line["tensorboard"] = trainer.tb is not None
+        line["final"] = {"step": int(trainer.state.step), "alive": trainer.n_alive(),
+                         "capacity": trainer.state.params.capacity,
+                         "budgets": [trainer.raster_cfg.max_instances,
+                                     trainer.raster_cfg.max_rows]}
+        if line["final"]["step"] != last or not line["evals"]:
+            raise AssertionError(f"trainer: {line['final']}, evals {line['evals']}")
+        with open(os.path.join(straight, "results.json")) as f:
+            results = json.load(f)[f"ours_{last}"]
+        line["results"] = results
+        if not (0.0 < results["SSIM"] <= 1.0 and math.isfinite(results["PSNR"])
+                and results["LPIPS"] is None):
+            raise AssertionError(f"trainer: results.json {results}")
+        del trainer
+
+        with without_tensorboard():
+            again, seconds["resumed_train"] = timed(torch, lambda: train_cli.main(
+                argv + ["-m", resumed, "--start_checkpoint",
+                        os.path.join(straight, "chkpnt200.npz")]))
+        line["resumed_windows"] = [[e["window"], e["steps"], e["ms"]]
+                                   for e in again.events if "window" in e]
+        del again
+        equal = checkpoints_equal(os.path.join(straight, f"chkpnt{last}.npz"),
+                                  os.path.join(resumed, f"chkpnt{last}.npz"))
+        line["resume_equals_straight_bitwise"] = equal
+        if resume_bitwise and not equal:
+            raise AssertionError("trainer: the resumed run's checkpoint differs from "
+                                 "the straight run's")
+    steps.drop_step_graphs()
+    line["seconds"] = seconds
+    line["phase_seconds"] = time.perf_counter() - t_phase
+    emit(line)
+
+
 def main() -> int:
     import torch
 
@@ -1452,10 +1757,14 @@ def main() -> int:
 
     # --- the training step at full width -----------------------------------
     gt = results[("origin", False)].image
+    bank = view_bank(torch, views.values(), [results[(v, False)].image for v in views])
     del results
     tool_kernels.reset_launch_counts()
     train_calls, train_launches, state = phase_train(
         torch, kernels, random_scene, views["origin"], gt, dev)
+    # --- a window of steps as replays of the captured step ---------------------
+    graph_line = phase_graph(torch, kernels, state, bank, cfgs[False])
+    del bank
     main_launches["step"] = dict(tool_kernels.launch_counts)
     if any(main_launches["views"].values()) or any(main_launches["step"].values()):
         raise AssertionError(f"a tools kernel ran on the main path: {main_launches}")
@@ -1581,6 +1890,13 @@ def main() -> int:
                             tools[1], tools[2], twin_ms, main_launches)
     if not all(math.isfinite(e["ms"]) for e in entries):
         raise AssertionError("kernel timing failed")
+
+    # --- the training CLI, render and metrics on a dataset on disk ------------
+    # Last of the measurements: after its run torch.profiler sessions in this
+    # process miss kernel events (PERF.md §7), and every profiled number
+    # above is taken before it.
+    phase_trainer(torch, kernels, render, params,
+                  graph_line["eager_bitwise_reproducible"])
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

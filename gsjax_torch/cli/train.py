@@ -1,0 +1,99 @@
+"""Training CLI (reference: train.py:193-221):
+
+    python -m gsjax_torch.cli.train -s <dataset> -m <model dir> [--eval] ...
+
+Trains on the device `--data_device` names (CUDA by default). Returns the
+Trainer from main() for callers that drive it in-process."""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+import sys
+import uuid
+
+import torch
+
+from gsjax_torch.cli.args import extract, make_train_parser, save_cfg_args
+from gsjax_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+from gsjax_torch.scene import Scene
+from gsjax_torch.train.trainer import Trainer
+from gsjax_torch.utils.general import safe_state
+
+
+def prepare_output_and_logger(model_cfg: ModelConfig) -> tuple[ModelConfig, object]:
+    """(reference: train.py:134-154)"""
+    if not model_cfg.model_path:
+        unique = os.getenv("OAR_JOB_ID") or str(uuid.uuid4())
+        model_cfg = dataclasses.replace(
+            model_cfg, model_path=os.path.join("./output/", unique[0:10])
+        )
+    print(f"Output folder: {model_cfg.model_path}")
+    os.makedirs(model_cfg.model_path, exist_ok=True)
+    save_cfg_args(model_cfg.model_path, model_cfg)
+
+    tb_writer = None
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+
+        tb_writer = SummaryWriter(model_cfg.model_path)
+    except ImportError:
+        print("Tensorboard not available: not logging progress")
+    return model_cfg, tb_writer
+
+
+def main(argv=None) -> Trainer:
+    parser = make_train_parser()
+    args = parser.parse_args(argv if argv is not None else sys.argv[1:])
+    if args.data_parallel * args.tile_parallel > 1:
+        raise NotImplementedError(
+            "--data_parallel / --tile_parallel above 1 need the device mesh, "
+            "which is not ported yet (ROADMAP queue item 6)")
+    if args.orbax:
+        raise NotImplementedError("orbax checkpoints are not ported (ROADMAP §3)")
+    model_cfg = extract(ModelConfig, args)
+    opt_cfg = extract(OptimizationConfig, args)
+    pipe_cfg = extract(PipelineConfig, args)
+
+    save_iterations = list(args.save_iterations) + [opt_cfg.iterations]
+    print(f"Optimizing {model_cfg.model_path}")
+    safe_state(args.quiet)
+
+    if args.detect_anomaly:
+        # The reference's own meaning (reference: train.py:218). A captured
+        # step cannot run under it: the windows then run eagerly.
+        torch.autograd.set_detect_anomaly(True)
+
+    # --debug is the reference rasterizer's dump-inputs-on-failure flag
+    # (reference: README.md:143-146); here it turns on anomaly detection
+    # from iteration 0 (the trainer also snapshots the whole state on a
+    # non-finite loss). --debug_from delays it (reference train.py:81-82).
+    debug_from = 0 if pipe_cfg.debug else args.debug_from
+
+    model_cfg, tb_writer = prepare_output_and_logger(model_cfg)
+
+    scene = Scene(model_cfg, capacity=args.capacity, device=model_cfg.data_device)
+    trainer = Trainer(
+        scene,
+        model_cfg,
+        opt_cfg,
+        pipe_cfg,
+        start_checkpoint=args.start_checkpoint,
+        tb_writer=tb_writer,
+        quiet=args.quiet,
+        profile_dir=args.profile_dir,
+    )
+    trainer.train(
+        test_iterations=set(args.test_iterations),
+        save_iterations=set(save_iterations),
+        checkpoint_iterations=set(args.checkpoint_iterations),
+        debug_from=debug_from,
+    )
+    if tb_writer is not None:
+        tb_writer.close()
+    print("\nTraining complete.")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

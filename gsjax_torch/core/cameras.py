@@ -135,8 +135,9 @@ class Camera:
 
 def _true_div(num: float, den: torch.Tensor) -> torch.Tensor:
     """num / den as one f32 division (`num / tensor` multiplies by the
-    reciprocal, an ulp away)."""
-    return torch.div(den.new_tensor(num), den)
+    reciprocal, an ulp away). The numerator is filled on the device, so a
+    CUDA graph can capture it."""
+    return torch.div(torch.full_like(den, num), den)
 
 
 def ndc_to_pixel(ndc: torch.Tensor, size: torch.Tensor | float) -> torch.Tensor:

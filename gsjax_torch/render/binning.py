@@ -138,10 +138,12 @@ def _expand(start: torch.Tensor, budget: int) -> tuple[torch.Tensor, torch.Tenso
     dev = start.device
     s = torch.arange(budget, dtype=torch.int32, device=dev)
     st = start.long()
-    keep = st < budget
-    marks = torch.zeros(budget, dtype=torch.int32, device=dev)
-    marks.index_add_(0, st[keep], torch.ones_like(st[keep], dtype=torch.int32))
-    owner = (torch.cumsum(marks, dim=0) - 1).to(torch.int32)
+    # Starts past the budget land in a spare last mark, sliced off: no
+    # boolean selection, whose size would need a host sync (the step is
+    # captured as a CUDA graph).
+    marks = torch.zeros(budget + 1, dtype=torch.int32, device=dev)
+    marks.index_add_(0, st.clamp(max=budget), torch.ones_like(st, dtype=torch.int32))
+    owner = (torch.cumsum(marks[:budget], dim=0) - 1).to(torch.int32)
     return owner, s
 
 

@@ -227,9 +227,11 @@ def preprocess(
     mean_ndc = ndc[:, :2]
     if mean2d_offset is not None:
         mean_ndc = mean_ndc + mean2d_offset
-    size = torch.tensor(
-        [camera.width, camera.height], dtype=torch.float32, device=xyz.device
-    )
+    # Filled on the device, not copied from the host: a CUDA graph cannot
+    # capture a copy from pageable memory.
+    size = torch.full((2,), float(camera.width), dtype=torch.float32,
+                      device=xyz.device)
+    size[1:].fill_(camera.height)
     mean_pix = ndc_to_pixel(mean_ndc, size[None, :])
 
     if rgb_precomp is None:

@@ -1,2 +1,2 @@
-"""Training: losses, learning-rate schedule, Adam, densification
-statistics and the training step."""
+"""Training: losses, learning-rate schedule, Adam, densification, the
+training step and its captured windows, checkpoints and the Trainer."""

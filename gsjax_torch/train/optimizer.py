@@ -60,8 +60,10 @@ def adam_update(
     """
     count = state.count + 1
     c = count.to(torch.float32)
-    bc1 = 1.0 - torch.pow(c.new_tensor(BETA1), c)
-    bc2 = 1.0 - torch.pow(c.new_tensor(BETA2), c)
+    # Constants filled on the device (torch.full_like), never copied from
+    # the host, here and in make_lr_tree: the step is captured as a graph.
+    bc1 = 1.0 - torch.pow(torch.full_like(c, BETA1), c)
+    bc2 = 1.0 - torch.pow(torch.full_like(c, BETA2), c)
     for name in PARAM_NAMES:
         g = grads[name]
         m = state.mu[name].mul_(BETA1).add_((1.0 - BETA1) * g)
@@ -85,7 +87,7 @@ def make_lr_tree(
     )
 
     def f32(v: float) -> torch.Tensor:
-        return torch.tensor(v, dtype=torch.float32, device=xyz_lr.device)
+        return torch.full((), v, dtype=torch.float32, device=xyz_lr.device)
 
     return {
         "xyz": xyz_lr,

@@ -29,7 +29,8 @@ def expon_lr(
     else:
         delay_rate = 1.0
     t = torch.clamp(step / max_steps, 0.0, 1.0)
-    log_init = torch.log(step.new_tensor(lr_init))
-    log_final = torch.log(step.new_tensor(lr_final))
+    # Filled on the device, so a CUDA graph of the step can capture them.
+    log_init = torch.log(torch.full_like(step, lr_init))
+    log_final = torch.log(torch.full_like(step, lr_final))
     log_lerp = torch.exp(log_init * (1.0 - t) + log_final * t)
     return torch.where(step < 0, torch.zeros_like(step), delay_rate * log_lerp)

@@ -1,21 +1,33 @@
-"""One training step: render -> L1 + SSIM loss -> backward -> Adam.
+"""The training step, and windows of steps.
 
-The body of the reference hot loop (reference: train.py:69-128), as
-`gsjax.train.step._step_core` runs it for one view. The screen-space
-position gradient that the reference reads from its dummy means2D tensor
-is the gradient of an explicit zero `mean2d_offset` input, taken in the
-same backward pass.
+`train_step` is the body of the reference hot loop (reference:
+train.py:69-128) for one view, as `gsjax.train.step._step_core` runs it:
+render -> L1 + SSIM loss -> backward -> Adam. The screen-space position
+gradient that the reference reads from its dummy means2D tensor is the
+gradient of an explicit zero `mean2d_offset` input, taken in the same
+backward pass.
+
+`train_steps` runs a window of W steps, each on a view picked from a
+CameraBank on the device, as gsjax's scan of `_step_core` does. On CPU
+tensors it is a Python loop of `_step_core`. On CUDA tensors it replays
+one captured CUDA graph of `_step_core` W times: the graph reads the
+window's camera index and background through a cursor on the device, so
+a step is one `replay()` and a window makes no host sync. Under
+`torch.autograd.set_detect_anomaly` (which a graph cannot capture) the
+window runs the loop on the card too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import torch
 
 from gsjax_torch.config import OptimizationConfig, RasterConfig
 from gsjax_torch.core.cameras import Camera
 from gsjax_torch.model import PARAM_NAMES, GaussianAux, GaussianParams
+from gsjax_torch.render import kernels
 from gsjax_torch.render.api import render
 from gsjax_torch.train.densify import add_densification_stats
 from gsjax_torch.train.loss import l1_loss, ssim
@@ -36,6 +48,50 @@ class StepMetrics:
     l1: torch.Tensor
     num_instances: torch.Tensor
     num_rows: torch.Tensor
+
+
+METRIC_DTYPES = {
+    "loss": torch.float32, "l1": torch.float32, "num_instances": torch.int32,
+    "num_rows": torch.int32,
+}
+AUX_NAMES = ("alive", "max_radii2d", "xyz_grad_accum", "denom")
+
+
+def state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor of the state, in a fixed order."""
+    return (
+        [getattr(state.params, k) for k in PARAM_NAMES]
+        + [state.opt.mu[k] for k in PARAM_NAMES]
+        + [state.opt.nu[k] for k in PARAM_NAMES]
+        + [getattr(state.aux, k) for k in AUX_NAMES]
+        + [state.opt.count, state.step]
+    )
+
+
+@torch.no_grad()
+def clone_state(state: TrainState) -> TrainState:
+    """A copy of the state holding new tensors."""
+    return TrainState(
+        params=GaussianParams(
+            **{k: getattr(state.params, k).detach().clone() for k in PARAM_NAMES}),
+        opt=AdamState(
+            count=state.opt.count.clone(),
+            mu={k: v.clone() for k, v in state.opt.mu.items()},
+            nu={k: v.clone() for k, v in state.opt.nu.items()},
+        ),
+        aux=GaussianAux(**{k: getattr(state.aux, k).clone() for k in AUX_NAMES}),
+        step=state.step.clone(),
+    )
+
+
+@torch.no_grad()
+def copy_state_(dst: TrainState, src: TrainState) -> None:
+    """Write every tensor of src into dst's tensor of the same name, in
+    place (same capacity): the tensors a captured step reads keep their
+    addresses."""
+    for d, s in zip(state_tensors(dst), state_tensors(src)):
+        if d.data_ptr() != s.data_ptr():
+            d.copy_(s)
 
 
 def train_step(
@@ -85,3 +141,251 @@ def train_step(
         num_rows=out.num_rows,
     )
     return new_state, metrics
+
+
+def _step_core(
+    state: TrainState,
+    bank,
+    cam_idx: torch.Tensor,
+    bg: torch.Tensor,
+    active_sh_degree: int,
+    opt_cfg: OptimizationConfig,
+    raster_cfg: RasterConfig,
+    spatial_lr_scale: float,
+) -> tuple[TrainState, StepMetrics]:
+    """One step on view cam_idx ([] int tensor on the bank's device) of a
+    CameraBank, picked on the device (gsjax/train/step.py:69-106)."""
+    camera, gt_image = bank.pick(cam_idx)
+    return train_step(
+        state, camera, gt_image, bg, active_sh_degree=active_sh_degree,
+        opt_cfg=opt_cfg, raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale,
+    )
+
+
+def stack_metrics(metrics: list[StepMetrics]) -> StepMetrics:
+    return StepMetrics(**{
+        k: torch.stack([getattr(m, k) for m in metrics]) for k in METRIC_DTYPES
+    })
+
+
+def scan_steps(
+    state: TrainState,
+    bank,
+    cam_indices: torch.Tensor,
+    bgs: torch.Tensor,
+    *,
+    active_sh_degree: int,
+    opt_cfg: OptimizationConfig,
+    raster_cfg: RasterConfig,
+    spatial_lr_scale: float,
+) -> tuple[TrainState, StepMetrics]:
+    """The window as a Python loop of `_step_core` on the state's device
+    (the semantics of gsjax's lax.scan); metrics stacked to [W]."""
+    dev = state.params.device
+    cam_indices = torch.as_tensor(cam_indices, dtype=torch.int32).to(dev)
+    bgs = torch.as_tensor(bgs, dtype=torch.float32).to(dev)
+    metrics = []
+    for k in range(cam_indices.shape[0]):
+        state, m = _step_core(
+            state, bank, cam_indices[k], bgs[k], active_sh_degree, opt_cfg,
+            raster_cfg, spatial_lr_scale,
+        )
+        metrics.append(m)
+    return state, stack_metrics(metrics)
+
+
+def train_steps(
+    state: TrainState,
+    bank,
+    cam_indices: torch.Tensor,
+    bgs: torch.Tensor,
+    *,
+    active_sh_degree: int,
+    opt_cfg: OptimizationConfig,
+    raster_cfg: RasterConfig,
+    spatial_lr_scale: float,
+) -> tuple[TrainState, StepMetrics]:
+    """A window of W iterations (gsjax/train/step.py:152-179).
+
+    cam_indices: [W] int view indices into `bank`; bgs: [W, 3]. Returns the
+    state and the per-step metrics stacked along the window, on the
+    state's device. On the card the window replays the captured step
+    (`step_graph`) and updates the state's tensors in place; the returned
+    state holds the same tensors. On the CPU, and on the card under
+    anomaly detection, it is `scan_steps`.
+    """
+    kw = dict(active_sh_degree=active_sh_degree, opt_cfg=opt_cfg,
+              raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale)
+    if state.params.device.type != "cuda" or torch.is_anomaly_enabled():
+        return scan_steps(state, bank, cam_indices, bgs, **kw)
+    return step_graph(state, bank, **kw).run(cam_indices, bgs)
+
+
+# --- the captured step ------------------------------------------------------
+
+# Steps a graph's camera, background and metric buffers hold: the longest
+# window `train_steps` replays on the card (the Trainer's are at most its
+# max_window, 50 by default).
+GRAPH_WINDOW = 1024
+# Eager steps on a copy of the state before a capture (torch's
+# whole-network capture recipe): they build the kernels, start autograd's
+# device threads and fill the allocator's cache.
+WARMUP_STEPS = 2
+
+# Kernel launches made by graph replays. render/kernels.py counts launches
+# on the host, where a wrapper calls its kernel; a capture records each
+# such launch once into the graph (counted there, though a capture runs
+# nothing) and a replay repeats them, so the launches of replays are the
+# capture's count times the replays.
+replayed_launch_counts = {name: 0 for name in kernels.KERNEL_NAMES}
+# One record per capture: its key's sizes, warm-up and capture ms, the
+# bytes its memory pool took and the launches it recorded.
+captures: list[dict] = []
+
+_GRAPHS: dict[tuple, "StepGraph"] = {}
+
+
+def reset_graph_counts() -> None:
+    for name in replayed_launch_counts:
+        replayed_launch_counts[name] = 0
+    captures.clear()
+
+
+def executed_launches() -> dict[str, int]:
+    """Kernel launches executed on the card since the counts were reset:
+    the host's count, less what captures recorded, plus the replays'."""
+    return {k: kernels.launch_counts[k] + replayed_launch_counts[k]
+            - sum(c["launches"][k] for c in captures) for k in kernels.KERNEL_NAMES}
+
+
+def drop_step_graphs() -> None:
+    """Forget every captured step (and free its memory pool): after a
+    budget change or a capacity growth, as gsjax's `_apply_budgets` drops
+    its compiled executables."""
+    _GRAPHS.clear()
+
+
+def _bound_ptrs(state: TrainState, bank) -> tuple[int, ...]:
+    bank_tensors = (bank.views, bank.full_projs, bank.centers, bank.tan_fovx,
+                    bank.tan_fovy, bank.gt_rgb, bank.alpha)
+    return tuple(t.data_ptr() for t in (*state_tensors(state), *bank_tensors))
+
+
+def step_graph(
+    state: TrainState,
+    bank,
+    *,
+    active_sh_degree: int,
+    opt_cfg: OptimizationConfig,
+    raster_cfg: RasterConfig,
+    spatial_lr_scale: float,
+) -> "StepGraph":
+    """The captured step for this key, captured on first use: the
+    counterpart of gsjax's executable key (resolution, capacity, SH
+    degree, configs), plus the addresses of the state's and the bank's
+    tensors, which the graph reads and writes in place. Capturing for a
+    new state drops the graphs bound to another one."""
+    key = (bank.width, bank.height, state.params.capacity, active_sh_degree,
+           raster_cfg, opt_cfg, spatial_lr_scale, _bound_ptrs(state, bank))
+    graph = _GRAPHS.get(key)
+    if graph is None:
+        state_ptrs = key[-1][:len(state_tensors(state))]
+        for k in [k for k in _GRAPHS if k[-1][:len(state_ptrs)] != state_ptrs]:
+            del _GRAPHS[k]
+        graph = StepGraph(
+            state, bank, active_sh_degree=active_sh_degree, opt_cfg=opt_cfg,
+            raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale,
+        )
+        _GRAPHS[key] = graph
+    return graph
+
+
+class StepGraph:
+    """`_step_core` captured once as a torch.cuda.CUDAGraph, bound to one
+    state and one bank.
+
+    The graph reads view index and background number `cursor` of the
+    window's buffers, runs the step (the parameters and moments are updated
+    in place by Adam; the new aux, step and Adam count are copied back into
+    the state's tensors), writes the step's four metrics into row `cursor`
+    of [GRAPH_WINDOW] buffers and adds one to the cursor, all on the
+    device. A capture or replay error propagates.
+    """
+
+    def __init__(self, state: TrainState, bank, *, active_sh_degree: int,
+                 opt_cfg: OptimizationConfig, raster_cfg: RasterConfig,
+                 spatial_lr_scale: float):
+        dev = state.params.device
+        self.state, self.bank = state, bank
+        self.step_kw = dict(active_sh_degree=active_sh_degree, opt_cfg=opt_cfg,
+                            raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale)
+        self.cam_buf = torch.zeros(GRAPH_WINDOW, dtype=torch.int32, device=dev)
+        self.bg_buf = torch.zeros((GRAPH_WINDOW, 3), dtype=torch.float32, device=dev)
+        self.cursor = torch.zeros((), dtype=torch.int64, device=dev)
+        self.out = {k: torch.zeros(GRAPH_WINDOW, dtype=d, device=dev)
+                    for k, d in METRIC_DTYPES.items()}
+
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(device=dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            scratch = clone_state(state)
+            for _ in range(WARMUP_STEPS):
+                self._body(scratch)
+            del scratch
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        warmup_ms = (time.perf_counter() - t0) * 1e3
+
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        before = dict(kernels.launch_counts)
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(self.graph):
+            self._body(state)
+        torch.cuda.synchronize(dev)
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        self.launches = {k: kernels.launch_counts[k] - before[k]
+                         for k in kernels.KERNEL_NAMES}
+        captures.append({
+            "width": bank.width, "height": bank.height,
+            "capacity": state.params.capacity, "active_sh_degree": active_sh_degree,
+            "budgets": [raster_cfg.max_instances, raster_cfg.max_rows],
+            "warmup_ms": warmup_ms, "capture_ms": capture_ms,
+            "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
+            "launches": dict(self.launches),
+        })
+
+    def _body(self, state: TrainState) -> None:
+        at = self.cursor.view(1)
+        cam_idx = self.cam_buf.index_select(0, at).squeeze(0)
+        bg = self.bg_buf.index_select(0, at).squeeze(0)
+        new, m = _step_core(state, self.bank, cam_idx, bg, **self.step_kw)
+        with torch.no_grad():
+            copy_state_(state, new)
+            for k, buf in self.out.items():
+                buf.index_copy_(0, at, getattr(m, k).reshape(1))
+            self.cursor.add_(1)
+
+    def run(self, cam_indices, bgs) -> tuple[TrainState, StepMetrics]:
+        """Replay the step once per view of the window; metrics [W] on the
+        card (copies: the next window reuses the buffers)."""
+        # From pinned host memory without blocking: a pageable copy would
+        # wait for the card (torch synchronizes the stream after one).
+        cam_indices, bgs = (
+            t.contiguous().pin_memory() if t.device.type == "cpu" else t
+            for t in (torch.as_tensor(cam_indices, dtype=torch.int32),
+                      torch.as_tensor(bgs, dtype=torch.float32)))
+        w = cam_indices.shape[0]
+        if w > GRAPH_WINDOW:
+            raise ValueError(f"a window of {w} steps is longer than the "
+                             f"captured step's buffers ({GRAPH_WINDOW})")
+        self.cam_buf[:w].copy_(cam_indices, non_blocking=True)
+        self.bg_buf[:w].copy_(bgs, non_blocking=True)
+        self.cursor.zero_()
+        for _ in range(w):
+            self.graph.replay()
+        for k, n in self.launches.items():
+            replayed_launch_counts[k] += n * w
+        return self.state, StepMetrics(**{k: v[:w].clone() for k, v in self.out.items()})
