@@ -64,18 +64,36 @@ Phases, one JSON line each (any failure exits non-zero):
            PLY saved and reloaded through load_iteration, an npz
            checkpoint saved and reloaded (every tensor equal); seconds of
            every part
+  viewer   the viewer's serving path: a Trainer on the scene phase's
+           Scene serving a NetworkGUI on a free port; a client thread sends
+           20 requests at 1920x1080 from the four main-phase views, a
+           zero-resolution keep-alive and a last request to train, which
+           ends Trainer._poll_gui; each frame within one uint8 level of a
+           direct fast_fwd render of the original camera, the state
+           untouched; frame ms (send to last byte; median, p90), fps, the
+           render's share, bytes per frame, the forward kernels' launches
+           per frame
+  lpips    a seeded random-weights LPIPS npz passes check_lpips_weights;
+           lpips on the card equals lpips on the CPU within rtol 1e-4
+           (128x128 pair); ms per 1080p pair against its bound
+  tools    also queue item 7's profilers through their run functions on
+           the bench scene: bench_fps, trace_step (the train step's device
+           time by op and by op family, idle gaps), trace_binning,
+           profile_kernels (16x16 tiles) and bench_sweep (32x32, 16x16);
+           after the trainer phase, bench_trained on its PLY
   trainer  `python -m gsjax_torch.cli.train` (through main) on a COLMAP
            dataset of the bench scene (as the scene phase writes it) with
-           --eval, 300 iterations: densify from 100 every 100, an opacity
-           reset at 200, checkpoints at 200 and 300, a test at 300; then
-           cli.render of the test view and cli.metrics (results.json: SSIM,
-           PSNR, LPIPS null); ms per window, captures, densify and budget
-           events, evaluations, host work; the main kernels' launches over
-           the run; then a run resumed from the checkpoint at 200 (without
-           TensorBoard), whose checkpoint at 300 must equal the straight
-           run's bit for bit where the graph phase found the eager step
-           reproducible. Runs last, after every profiled measurement, just
-           before the kernels line
+           --eval, 300 iterations, the viewer listening on a free port:
+           densify from 100 every 100, an opacity reset at 200, checkpoints
+           at 200 and 300, a test at 300; then cli.render of the test view
+           and cli.metrics with the lpips phase's weights (results.json:
+           SSIM, PSNR, a finite LPIPS); ms per window, captures, densify
+           and budget events, evaluations, host work; the main kernels'
+           launches over the run; then a run resumed from the checkpoint at
+           200 (without TensorBoard), whose checkpoint at 300 must equal
+           the straight run's bit for bit where the graph phase found the
+           eager step reproducible. Runs last, after every profiled
+           measurement, just before the kernels line
   cull     at the bench origin view: for each warp shape (32x1, 16x2, 8x4)
            the (instance, warp) pairs the exact walk visits, those the
            cull keeps and those with a live pixel; the culled composite
@@ -1393,7 +1411,8 @@ def phase_scene(torch, kernels, render, params):
     to a numpy recomputation; the native 3-NN against the torch 3-NN on the
     card; three train steps that pick their views from the bank on the
     device, a densify, a PLY save reloaded through load_iteration, and an
-    npz checkpoint saved and reloaded."""
+    npz checkpoint saved and reloaded. Returns the Scene (its dataset's
+    files are gone) and its ModelConfig."""
     import os
     import tempfile
 
@@ -1515,6 +1534,326 @@ def phase_scene(torch, kernels, render, params):
     line["seconds"] = seconds
     line["phase_seconds"] = time.perf_counter() - t_phase
     emit(line)
+    return scene, cfg
+
+
+# --- the viewer, LPIPS and the remaining profilers (queue item 7) -----------------
+
+VIEWER_FRAMES = 20
+# LPIPS: a seeded random-weights npz in the spec's layout (pretrained
+# weights cannot be fetched), the card against the CPU on a small pair,
+# the card's time on a 1080p pair.
+LPIPS_SEED = 7
+LPIPS_CHECK_SIZE = 128
+LPIPS_RTOL = 1e-4
+LPIPS_REPS = 5
+# The profilers' depth, cut to keep the phase short.
+TOOL_ITERS = 5
+SWEEP_CONFIGS = "32x32c128s1,16x16c128s1"
+# bench_trained's orbit angle: the quality scene's orbit camera facing +z,
+# where the bench scene's Gaussians lie.
+TRAINED_ORBIT = math.pi
+
+
+def viewer_message(camera, width, height, **overrides) -> dict:
+    """The wire message a SIBR client sends for `camera`: the transposed
+    matrices with view columns 1, 2 and view-projection column 1 negated
+    (the server negates them back)."""
+    import numpy as np
+
+    view = camera.view.double().cpu().numpy().T.copy()
+    view[:, 1] = -view[:, 1]
+    view[:, 2] = -view[:, 2]
+    full = camera.full_proj.double().cpu().numpy().T.copy()
+    full[:, 1] = -full[:, 1]
+    msg = {"resolution_x": width, "resolution_y": height, "train": False,
+           "fov_y": 2.0 * math.atan(float(camera.tan_fovy)),
+           "fov_x": 2.0 * math.atan(float(camera.tan_fovx)),
+           "z_near": 0.01, "z_far": 100.0, "shs_python": False,
+           "rot_scale_python": False, "keep_alive": True, "scaling_modifier": 1.0,
+           "view_matrix": view.reshape(-1).tolist(),
+           "view_projection_matrix": full.reshape(-1).tolist()}
+    msg.update(overrides)
+    return msg
+
+
+def viewer_client(sock, messages, out):
+    """A SIBR client on a connected socket: sends each message, reads its
+    reply (the frame, then the source path) and records (frame bytes or
+    None, seconds from send to the last byte) in `out`; any error in
+    out["error"]. Closes the socket."""
+
+    def recv_exact(sock, n):
+        buf = bytearray(n)
+        view, got = memoryview(buf), 0
+        while got < n:
+            k = sock.recv_into(view[got:])
+            if not k:
+                raise ConnectionError("viewer closed the connection")
+            got += k
+        return bytes(buf)
+
+    try:
+        with sock:
+            for msg in messages:
+                payload = json.dumps(msg).encode("utf-8")
+                t0 = time.perf_counter()
+                sock.sendall(len(payload).to_bytes(4, "little") + payload)
+                n = msg["resolution_x"] * msg["resolution_y"] * 3
+                frame = recv_exact(sock, n) if n else None
+                recv_exact(sock, int.from_bytes(recv_exact(sock, 4), "little"))
+                out["replies"].append((frame, time.perf_counter() - t0))
+    except Exception as e:  # reported by the phase, which fails on it
+        out["error"] = f"{type(e).__name__}: {e}"
+
+
+def phase_viewer(torch, kernels, render, scene, model_cfg, views):
+    """The viewer's serving path: a Trainer on the scene phase's Scene with
+    a NetworkGUI on port 0; a client thread sends VIEWER_FRAMES requests at
+    1920x1080 from the four main-phase views (train false, keep-alive), one
+    zero-resolution keep-alive and a last request with train true, which
+    ends Trainer._poll_gui. Each reply equals image_to_bytes of a direct
+    fast_fwd render of the original camera within one uint8 level
+    (tests/test_viewer.py:158); the frames write nothing of the state. Frame
+    ms from send to last byte, the render's share, bytes per frame, and
+    the forward kernels' launches per frame (counts set to 0 just before
+    the poll and read just after)."""
+    import socket
+    import threading
+
+    import numpy as np
+
+    from gsjax_torch.config import OptimizationConfig
+    from gsjax_torch.train import step as steps
+    from gsjax_torch.train.trainer import Trainer
+    from gsjax_torch.viewer import NetworkGUI
+
+    t_phase = time.perf_counter()
+    cams = list(views.values())
+    sh = scene.params.max_sh_degree
+    cfg, peaks = sized_config(torch, render, scene.params, scene.aux, cams, sh)
+    gui = NetworkGUI("127.0.0.1", 0)
+    port = gui.listener.getsockname()[1]
+    trainer = Trainer(scene, model_cfg, OptimizationConfig(), raster_cfg=cfg, gui=gui,
+                      quiet=True)
+    trainer.active_sh_degree = sh
+    before = steps.clone_state(trainer.state)
+    order = [i % len(cams) for i in range(VIEWER_FRAMES)]
+    messages = [viewer_message(cams[i], BENCH_W, BENCH_H) for i in order]
+    messages.append(viewer_message(cams[0], 0, 0))
+    messages.append(viewer_message(cams[0], BENCH_W, BENCH_H, train=True))
+    order.append(0)
+
+    render_ms = []
+    render_view = trainer.render_view
+
+    def timed_render(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img = render_view(*args, **kwargs)
+        torch.cuda.synchronize()
+        render_ms.append((time.perf_counter() - t0) * 1e3)
+        return img
+
+    trainer.render_view = timed_render
+    out = {"replies": []}
+    # Connected before the poll, which tries once to accept.
+    sock = socket.create_connection(("127.0.0.1", port), timeout=120)
+    client = threading.Thread(target=viewer_client, args=(sock, messages, out), daemon=True)
+    try:
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        client.start()
+        t0 = time.perf_counter()
+        trainer._poll_gui(1, trainer.opt_cfg.iterations)
+        poll_s = time.perf_counter() - t0
+        client.join(120)
+        torch.cuda.synchronize()
+        launches = dict(kernels.launch_counts)
+    finally:
+        gui.close()
+    if client.is_alive() or "error" in out or len(out["replies"]) != len(messages):
+        raise AssertionError(f"viewer: client {out.get('error')}, "
+                             f"{len(out['replies'])} of {len(messages)} replies")
+    served = [(i, r) for i, r in zip(order, out["replies"][:VIEWER_FRAMES])] + [
+        (order[-1], out["replies"][-1])]
+    if out["replies"][VIEWER_FRAMES][0] is not None:
+        raise AssertionError("viewer: the keep-alive got a frame")
+    trainer.render_view = render_view
+    direct = [np.frombuffer(NetworkGUI.image_to_bytes(trainer.render_view(c, fast=True)),
+                            np.uint8).astype(np.int16) for c in cams]
+    diffs = [int(np.abs(np.frombuffer(frame, np.uint8).astype(np.int16) - direct[i]).max())
+             for i, (frame, _) in served]
+    if max(diffs) > 1:
+        raise AssertionError(f"viewer: served frames differ from direct renders by {diffs}")
+    if not all(torch.equal(a, b) for a, b in zip(steps.state_tensors(trainer.state),
+                                                 steps.state_tensors(before))):
+        raise AssertionError("viewer: a frame wrote the training state")
+    n_frames = len(served)
+    per_frame = {k: launches[k] / n_frames for k in FORWARD_KERNELS}
+    expected = {"composite_forward": 1, "rank_prefix": 1, "row_engine": (0, 1)}
+    if any(per_frame[k] not in (v if isinstance(v, tuple) else (v,))
+           for k, v in expected.items()):
+        raise AssertionError(f"viewer: launches per frame {per_frame}")
+    frame_ms = sorted(dt * 1e3 for _, (_, dt) in served)
+    median = frame_ms[len(frame_ms) // 2]
+    render_sorted = sorted(render_ms)
+    emit({"phase": "viewer", "frames": n_frames, "keep_alives": 1, "width": BENCH_W,
+          "height": BENCH_H, "gaussians": int(scene.aux.n_alive()), "sh_degree": sh,
+          "tile": f"{cfg.tw}x{cfg.th}", "budgets": [cfg.max_instances, cfg.max_rows],
+          "peaks": peaks, "frame_ms_median": median,
+          "frame_ms_p90": frame_ms[int(0.9 * (len(frame_ms) - 1))],
+          "frame_ms_min": frame_ms[0], "fps": 1e3 / median,
+          "render_ms_median": render_sorted[len(render_sorted) // 2],
+          "render_share": render_sorted[len(render_sorted) // 2] / median,
+          "bytes_per_frame": BENCH_W * BENCH_H * 3, "max_level_diff": max(diffs),
+          "launches_per_frame": per_frame, "poll_seconds": poll_s,
+          "phase_seconds": time.perf_counter() - t_phase})
+    del trainer, before
+
+
+def vgg_macs(height: int, width: int) -> int:
+    """Multiply-adds of the LPIPS-vgg trunk on one image: 13 conv3x3
+    layers, the resolution halved (floor) after each of the first four
+    blocks."""
+    from gsjax_torch.image_metrics import _VGG_BLOCKS
+
+    macs, cin = 0, 3
+    for b, (cout, n_convs) in enumerate(_VGG_BLOCKS):
+        for _ in range(n_convs):
+            macs += height * width * cout * cin * 9
+            cin = cout
+        if b < len(_VGG_BLOCKS) - 1:
+            height, width = height // 2, width // 2
+    return macs
+
+
+def lpips_random_weights(rng) -> dict:
+    """Random conv and head weights in the spec's layout (the recipe of
+    tests/test_lpips.py's random weights)."""
+    import numpy as np
+
+    from gsjax_torch.image_metrics import expected_lpips_members
+
+    weights = {}
+    for k, shape in expected_lpips_members().items():
+        if k.startswith("conv") and k.endswith(".w"):
+            weights[k] = rng.normal(0, 0.2 / np.sqrt(shape[1]), shape)
+        elif k.startswith("conv"):
+            weights[k] = rng.normal(0, 0.1, shape)
+        else:
+            weights[k] = np.abs(rng.normal(0, 0.05, shape))
+    return {k: v.astype(np.float32) for k, v in weights.items()}
+
+
+def phase_lpips(torch, root):
+    """LPIPS-vgg: a seeded random-weights npz written under `root` passes
+    check_lpips_weights; lpips on the card equals lpips on the CPU within
+    LPIPS_RTOL on a LPIPS_CHECK_SIZE^2 pair; ms per 1080p pair on the card
+    (CUDA events) against its bound, the trunk's f32 operations over the
+    card's f32 peak. Returns the npz's path."""
+    import os
+
+    import numpy as np
+
+    from gsjax_torch import image_metrics
+    from gsjax_torch.tools.common import cuda_ms
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(LPIPS_SEED)
+    path = os.path.join(root, "lpips_vgg.npz")
+    np.savez(path, **lpips_random_weights(rng))
+    digest = image_metrics.check_lpips_weights(path)
+    s = LPIPS_CHECK_SIZE
+    x = rng.uniform(0, 1, (2, 3, s, s)).astype(np.float32)
+    y = np.clip(x + rng.normal(0, 0.08, x.shape).astype(np.float32), 0, 1)
+    cpu = image_metrics.lpips(torch.from_numpy(x), torch.from_numpy(y), weights=path)
+    card = image_metrics.lpips(torch.from_numpy(x).cuda(), torch.from_numpy(y).cuda(),
+                               weights=path).cpu()
+    rel = float(((card - cpu).abs() / cpu.abs()).max())
+    if not (bool(torch.isfinite(card).all()) and bool((cpu > 0).all()) and rel <= LPIPS_RTOL):
+        raise AssertionError(f"lpips: card {card.tolist()} vs cpu {cpu.tolist()} ({rel})")
+    gen = torch.Generator(device="cuda").manual_seed(LPIPS_SEED)
+    a = torch.rand((1, 3, BENCH_H, BENCH_W), generator=gen, device="cuda")
+    b = torch.clamp(a + 0.05 * torch.randn(a.shape, generator=gen, device="cuda"), 0, 1)
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(lambda: image_metrics.lpips(a, b, weights=path), reps=LPIPS_REPS)
+    value = float(image_metrics.lpips(a, b, weights=path)[0])
+    flops = 2 * 2 * vgg_macs(BENCH_H, BENCH_W)
+    bound_ms = flops / F32_FLOP_PER_S * 1e3
+    emit({"phase": "lpips", "sha256": digest, "check_size": s, "cpu": cpu.tolist(),
+          "card": card.tolist(), "max_rel_err": rel, "rtol": LPIPS_RTOL,
+          "width": BENCH_W, "height": BENCH_H, "ms_per_pair": ms, "value_1080p": value,
+          "flop_per_pair": flops, "bound_ms": bound_ms, "bound_by": "operations",
+          "share_of_bound": bound_ms / ms,
+          "peak_gb": torch.cuda.max_memory_allocated() / 2**30, "tf32": False,
+          "phase_seconds": time.perf_counter() - t_phase})
+    del a, b
+    return path
+
+
+def phase_profilers(torch, params, aux, camera, cfg):
+    """Queue item 7's profilers (gsjax_torch.tools.{bench_fps, trace_step,
+    trace_binning, profile_kernels, bench_sweep}) through their run
+    functions on the bench scene already built, at TOOL_ITERS where they
+    take a depth: one `tools` line per measurement. trace_step's families
+    must hold the composite kernels, binning, gathers, preprocess, SSIM,
+    L1 and Adam, and cover its device ops; trace_binning's calls split
+    one by one."""
+    from gsjax_torch.config import RasterConfig
+    from gsjax_torch.tools import (
+        bench_fps, bench_sweep, profile_kernels, trace_binning, trace_step,
+    )
+
+    t_phase = time.perf_counter()
+    seconds = {}
+
+    def tool(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds[name] = time.perf_counter() - t0
+        return out
+
+    for row in tool("bench_fps", lambda: bench_fps.run(params, aux, iters=TOOL_ITERS)):
+        emit(dict(phase="tools", **row))
+    step = tool("trace_step", lambda: trace_step.run(params, aux, camera, cfg))
+    want = {"composite kernels", "binning", "gathers", "preprocess", "SSIM", "L1", "Adam"}
+    if not want <= set(step["by_family_ms"]):
+        raise AssertionError(f"trace_step: families {step['by_family_ms']}")
+    emit(dict(phase="tools", **step))
+    binning = tool("trace_binning", lambda: trace_binning.run(params, aux, camera, cfg))
+    if len(binning["per_call"]) != binning["calls"]:
+        raise AssertionError(f"trace_binning: {binning['per_call']}")
+    emit(dict(phase="tools", **binning))
+    pk_cfg = RasterConfig(**profile_kernels.DEFAULTS)
+    for row in tool("profile_kernels", lambda: profile_kernels.run(
+            params, aux, camera, pk_cfg, iters=TOOL_ITERS, device_reps=TOOL_ITERS)):
+        emit(dict(phase="tools", profile_kernels=True, **row))
+    configs = bench_sweep.parse_configs(SWEEP_CONFIGS)
+    for row in tool("bench_sweep", lambda: bench_sweep.run(
+            params, aux, camera, configs, iters=TOOL_ITERS, fwd_only=True)):
+        emit(dict(phase="tools", **row))
+    emit({"phase": "tools", "seconds": seconds,
+          "phase_seconds": time.perf_counter() - t_phase})
+
+
+def bench_trained_line(torch, model):
+    """tools.bench_trained on a trained model's newest PLY (CUDA events
+    only: it runs after the trainer phase)."""
+    import os
+
+    from gsjax_torch.profile_stages import ply_scene
+    from gsjax_torch.tools import bench_trained
+
+    t0 = time.perf_counter()
+    ply = bench_trained.newest_ply(model)
+    params, aux, camera, cfg, sh = ply_scene(ply, TRAINED_ORBIT, BENCH_W, BENCH_H)
+    out = bench_trained.run(params, aux, camera, cfg, sh, iters=TOOL_ITERS)
+    if not all(math.isfinite(v) and v > 0 for k, v in out.items() if k.endswith("_ms")):
+        raise AssertionError(f"bench_trained: {out}")
+    emit(dict(phase="tools", ply=os.path.relpath(ply, model), orbit=TRAINED_ORBIT,
+              sh_degree=sh, seconds=time.perf_counter() - t0, **out))
 
 
 def checkpoints_equal(a: str, b: str) -> bool:
@@ -1543,22 +1882,24 @@ def without_tensorboard():
             sys.modules["torch.utils.tensorboard"] = saved
 
 
-def phase_trainer(torch, kernels, render, params, resume_bitwise):
+def phase_trainer(torch, kernels, render, params, resume_bitwise, lpips_weights):
     """The port's CLIs on a dataset on disk: a COLMAP model of the bench
     scene (write_colmap_scene) trained by `python -m gsjax_torch.cli.train`
     (through its main) with --eval for TRAINER_ITERATIONS steps: densify
     from 100 every 100, an opacity reset at 200, a test evaluation at the
     end, checkpoints at 200 and at the end; then cli.render of the test
-    view and cli.metrics. Then a second run resumed from the checkpoint at
-    200, whose checkpoint at the end must equal the straight run's bit for
-    bit when `resume_bitwise` (the eager step reproduces bit for bit on
-    this card; the graph phase says). Both runs without TensorBoard (its
+    view and cli.metrics with GSJAX_LPIPS_WEIGHTS naming `lpips_weights`
+    (results.json: a finite LPIPS). Then a second run resumed from the
+    checkpoint at 200, whose checkpoint at the end must equal the straight
+    run's bit for bit when `resume_bitwise` (the eager step reproduces bit
+    for bit on this card; the graph phase says). Both runs serve the viewer
+    on a free port (--port 0), and run without TensorBoard (its
     1080p report costs seconds; tests/test_torch_cli.py drives the
     writer). Counts set to 0 just before the straight run and read after
     metrics: every main-path kernel launched; the replays' launches are
     inferred, the captures' counts times the replays (the graph phase
     checks that count against torch.profiler; this phase comes after the
-    profiled ones)."""
+    profiled ones). Last, tools.bench_trained on the straight run's PLY."""
     import json
     import os
     import tempfile
@@ -1587,7 +1928,7 @@ def phase_trainer(torch, kernels, render, params, resume_bitwise):
                 "--iterations", str(last), "--densify_from_iter", "100",
                 "--densification_interval", "100", "--opacity_reset_interval", "200",
                 "--test_iterations", str(last), "--save_iterations", str(last),
-                "--checkpoint_iterations", "200", str(last)]
+                "--checkpoint_iterations", "200", str(last), "--port", "0"]
         straight, resumed = os.path.join(root, "straight"), os.path.join(root, "resumed")
         steps.drop_step_graphs()
         steps.reset_graph_counts()
@@ -1598,7 +1939,16 @@ def phase_trainer(torch, kernels, render, params, resume_bitwise):
                 torch, lambda: train_cli.main(argv + ["-m", straight]))
             _, seconds["render"] = timed(torch, lambda: render_cli.main(
                 ["-m", straight, "--iteration", str(last), "--skip_train", "--quiet"]))
-            _, seconds["metrics"] = timed(torch, lambda: metrics_cli.main(["-m", straight]))
+            saved_env = os.environ.get("GSJAX_LPIPS_WEIGHTS")
+            os.environ["GSJAX_LPIPS_WEIGHTS"] = lpips_weights
+            try:
+                _, seconds["metrics"] = timed(
+                    torch, lambda: metrics_cli.main(["-m", straight]))
+            finally:
+                if saved_env is None:
+                    del os.environ["GSJAX_LPIPS_WEIGHTS"]
+                else:
+                    os.environ["GSJAX_LPIPS_WEIGHTS"] = saved_env
         torch.cuda.synchronize()
         launches = steps.executed_launches()
         line["replayed_launches"] = dict(steps.replayed_launch_counts)
@@ -1614,6 +1964,7 @@ def phase_trainer(torch, kernels, render, params, resume_bitwise):
         line["evals"] = [e for e in events if "eval" in e]
         line["host_work"] = [e for e in events if "host" in e]
         line["tensorboard"] = trainer.tb is not None
+        line["viewer_listening"] = trainer.gui is not None
         line["final"] = {"step": int(trainer.state.step), "alive": trainer.n_alive(),
                          "capacity": trainer.state.params.capacity,
                          "budgets": [trainer.raster_cfg.max_instances,
@@ -1624,7 +1975,7 @@ def phase_trainer(torch, kernels, render, params, resume_bitwise):
             results = json.load(f)[f"ours_{last}"]
         line["results"] = results
         if not (0.0 < results["SSIM"] <= 1.0 and math.isfinite(results["PSNR"])
-                and results["LPIPS"] is None):
+                and results["LPIPS"] is not None and math.isfinite(results["LPIPS"])):
             raise AssertionError(f"trainer: results.json {results}")
         del trainer
 
@@ -1641,10 +1992,11 @@ def phase_trainer(torch, kernels, render, params, resume_bitwise):
         if resume_bitwise and not equal:
             raise AssertionError("trainer: the resumed run's checkpoint differs from "
                                  "the straight run's")
-    steps.drop_step_graphs()
-    line["seconds"] = seconds
-    line["phase_seconds"] = time.perf_counter() - t_phase
-    emit(line)
+        steps.drop_step_graphs()
+        line["seconds"] = seconds
+        line["phase_seconds"] = time.perf_counter() - t_phase
+        emit(line)
+        bench_trained_line(torch, straight)
 
 
 def main() -> int:
@@ -1772,7 +2124,11 @@ def main() -> int:
     # --- densification and the scene path at full width ------------------------
     phase_densify(torch, kernels, render, state, views["origin"], gt)
     del state
-    phase_scene(torch, kernels, render, params)
+    scene, scene_cfg = phase_scene(torch, kernels, render, params)
+
+    # --- the viewer's serving path on the scene phase's Scene -----------------
+    phase_viewer(torch, kernels, render, scene, scene_cfg, views)
+    del scene
 
     # --- the cull: warp counts, the twins, main against twin in turns ---------
     twin_ms = phase_cull(torch, kernels, tool_kernels, origin_calls, train_calls)
@@ -1793,6 +2149,16 @@ def main() -> int:
     stages = profile_stages.profile(
         profile_stages.Stages(params, aux, views["origin"], cfgs[False]))
     emit(dict(phase="stages", **stages))
+
+    # --- LPIPS, and queue item 7's profilers (profiled: before the trainer) ---
+    import os
+    import tempfile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    lpips_dir = tempfile.TemporaryDirectory(dir=build)
+    lpips_weights = phase_lpips(torch, lpips_dir.name)
+    phase_profilers(torch, params, aux, views["origin"], cfgs[False])
 
     # --- each kernel at the main path's shapes -------------------------------
     train_errs = check_backward_kernels(
@@ -1896,7 +2262,8 @@ def main() -> int:
     # process miss kernel events (PERF.md §7), and every profiled number
     # above is taken before it.
     phase_trainer(torch, kernels, render, params,
-                  graph_line["eager_bitwise_reproducible"])
+                  graph_line["eager_bitwise_reproducible"], lpips_weights)
+    lpips_dir.cleanup()
     emit({"kernels": entries})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

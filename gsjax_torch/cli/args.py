@@ -12,7 +12,7 @@ port's scene, model and training run on: "cuda" by default, "cpu" on
 request. The mesh flags (`--data_parallel`, `--tile_parallel`) and
 `--orbax` are parsed as gsjax parses them; the train CLI refuses values
 that ask for a mesh or orbax, which are not ported. `--ip` / `--port` are
-accepted; nothing listens on them until the viewer is ported.
+the address the train CLI's viewer server (gsjax_torch.viewer) listens on.
 """
 
 from __future__ import annotations

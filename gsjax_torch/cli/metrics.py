@@ -4,8 +4,10 @@ per_view.json with SSIM / PSNR / LPIPS, under gsjax's keys.
 
     python -m gsjax_torch.cli.metrics -m <model dir> [...] [--device cpu]
 
-LPIPS is not ported yet (gsjax_torch/image_metrics.py) and is reported as
-null, with gsjax's message.
+LPIPS-vgg is scored per view when weights are available
+(image_metrics.lpips_available(): GSJAX_LPIPS_WEIGHTS names an npz in the
+layout of gsjax/weights/LPIPS_WEIGHTS_SPEC.md); without them it is
+reported as null, with gsjax's message.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from gsjax_torch.config import resolve_device
-from gsjax_torch.image_metrics import lpips_available, psnr
+from gsjax_torch.image_metrics import lpips, lpips_available, psnr
 from gsjax_torch.train.loss import ssim
 
 
@@ -65,7 +67,11 @@ def evaluate(model_paths: list[str], device=None) -> None:
                     gtt = torch.as_tensor(g, device=dev)
                     ssims.append(float(ssim(rt, gtt)))
                     psnrs.append(float(psnr(rt, gtt).mean()))
-                    lpipss.append(None)
+                    lpipss.append(
+                        float(lpips(rt, gtt, net_type="vgg").mean())
+                        if use_lpips
+                        else None
+                    )
                 mean = lambda xs: (
                     float(np.mean([x for x in xs if x is not None]))
                     if any(x is not None for x in xs)
@@ -73,12 +79,17 @@ def evaluate(model_paths: list[str], device=None) -> None:
                 )
                 print(f"  SSIM : {mean(ssims):.7f}")
                 print(f"  PSNR : {mean(psnrs):.7f}")
-                if not use_lpips:
+                if use_lpips:
+                    print(f"  LPIPS: {mean(lpipss):.7f}")
+                else:
                     print(
                         "  LPIPS: UNAVAILABLE — reported as null in "
                         "results.json. The reference always scores "
-                        "LPIPS-vgg (metrics.py:71-74); the port has no LPIPS "
-                        "network yet (ROADMAP queue item 5)."
+                        "LPIPS-vgg (metrics.py:71-74); this environment "
+                        "has no network egress to fetch the pretrained "
+                        "VGG16+linear-head weights. Export them once with "
+                        "tools/export_lpips_weights.py on a machine with "
+                        "torchvision, then set GSJAX_LPIPS_WEIGHTS=<npz>."
                     )
                 full_dict[scene_dir][method].update(
                     {

@@ -2,8 +2,10 @@
 
     python -m gsjax_torch.cli.train -s <dataset> -m <model dir> [--eval] ...
 
-Trains on the device `--data_device` names (CUDA by default). Returns the
-Trainer from main() for callers that drive it in-process."""
+Trains on the device `--data_device` names (CUDA by default), and serves
+the SIBR remote viewer on `--ip`/`--port` (default 127.0.0.1:6009) between
+windows; if that address cannot be bound, it trains without the viewer.
+Returns the Trainer from main() for callers that drive it in-process."""
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from gsjax_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
 from gsjax_torch.scene import Scene
 from gsjax_torch.train.trainer import Trainer
 from gsjax_torch.utils.general import safe_state
+from gsjax_torch.viewer import NetworkGUI
 
 
 def prepare_output_and_logger(model_cfg: ModelConfig) -> tuple[ModelConfig, object]:
@@ -72,23 +75,36 @@ def main(argv=None) -> Trainer:
 
     model_cfg, tb_writer = prepare_output_and_logger(model_cfg)
 
-    scene = Scene(model_cfg, capacity=args.capacity, device=model_cfg.data_device)
-    trainer = Trainer(
-        scene,
-        model_cfg,
-        opt_cfg,
-        pipe_cfg,
-        start_checkpoint=args.start_checkpoint,
-        tb_writer=tb_writer,
-        quiet=args.quiet,
-        profile_dir=args.profile_dir,
-    )
-    trainer.train(
-        test_iterations=set(args.test_iterations),
-        save_iterations=set(save_iterations),
-        checkpoint_iterations=set(args.checkpoint_iterations),
-        debug_from=debug_from,
-    )
+    gui = None
+    try:
+        gui = NetworkGUI(args.ip, args.port)
+    except OSError as e:
+        print(f"Viewer server unavailable ({e}); continuing without GUI")
+
+    try:
+        scene = Scene(model_cfg, capacity=args.capacity, device=model_cfg.data_device)
+        trainer = Trainer(
+            scene,
+            model_cfg,
+            opt_cfg,
+            pipe_cfg,
+            start_checkpoint=args.start_checkpoint,
+            tb_writer=tb_writer,
+            gui=gui,
+            quiet=args.quiet,
+            profile_dir=args.profile_dir,
+        )
+        trainer.train(
+            test_iterations=set(args.test_iterations),
+            save_iterations=set(save_iterations),
+            checkpoint_iterations=set(args.checkpoint_iterations),
+            debug_from=debug_from,
+        )
+    finally:
+        # The viewer is served while training runs (gsjax's process ends
+        # here).
+        if gui is not None:
+            gui.close()
     if tb_writer is not None:
         tb_writer.close()
     print("\nTraining complete.")

@@ -120,6 +120,39 @@ class Camera:
             height=int(height),
         )
 
+    @classmethod
+    def from_matrices(
+        cls,
+        view_rowmajor: np.ndarray,
+        full_proj_rowmajor: np.ndarray,
+        fov_x: float,
+        fov_y: float,
+        width: int,
+        height: int,
+        device: torch.device | str | None = None,
+    ) -> "Camera":
+        """Build from reference-convention (transposed) matrices, as the
+        network viewer supplies them (reference: scene/cameras.py:59-70).
+        The view is inverted in float64 with numpy, as gsjax does, so that
+        cam_center agrees bit for bit."""
+        dev = resolve_device(device)
+        view = np.asarray(view_rowmajor, dtype=np.float32).T
+        full = np.asarray(full_proj_rowmajor, dtype=np.float32).T
+        c2w = np.linalg.inv(view.astype(np.float64))
+
+        def tensor(a):
+            return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+        return cls(
+            view=tensor(view),
+            full_proj=tensor(full),
+            cam_center=tensor(c2w[:3, 3]),
+            tan_fovx=tensor(math.tan(fov_x / 2.0)),
+            tan_fovy=tensor(math.tan(fov_y / 2.0)),
+            width=int(width),
+            height=int(height),
+        )
+
     @property
     def device(self) -> torch.device:
         return self.view.device

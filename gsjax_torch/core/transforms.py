@@ -64,3 +64,16 @@ def build_covariance(
     [..., 4] (reference: scene/gaussian_model.py:26-31)."""
     L = build_scaling_rotation(scaling_modifier * scaling, rotation)
     return strip_symmetric(L @ L.transpose(-1, -2))
+
+
+def cov6_to_mat(cov6: torch.Tensor) -> torch.Tensor:
+    """[..., 6] upper triangle -> [..., 3, 3] full symmetric matrix."""
+    xx, xy, xz, yy, yz, zz = cov6.unbind(-1)
+    return torch.stack(
+        [
+            torch.stack([xx, xy, xz], dim=-1),
+            torch.stack([xy, yy, yz], dim=-1),
+            torch.stack([xz, yz, zz], dim=-1),
+        ],
+        dim=-2,
+    )

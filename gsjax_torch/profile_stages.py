@@ -187,7 +187,8 @@ PROBE_BUDGET = 2 ** 22
 
 
 def ply_scene(path: str, orbit: float = 0.6, width: int = WIDTH,
-              height: int = HEIGHT, device=None, probe_budget: int = PROBE_BUDGET):
+              height: int = HEIGHT, device=None, probe_budget: int = PROBE_BUDGET,
+              tile_w: int = TILE, tile_h: int = TILE):
     """(params, aux, camera, cfg, sh_degree) of a model PLY seen from the
     trained-scene orbit camera: capacity the next power of two (at least
     1024), budgets pow2_budget of the view's pair and row counts with 3 %
@@ -196,13 +197,13 @@ def ply_scene(path: str, orbit: float = 0.6, width: int = WIDTH,
     params, aux = load_ply_model(path, device=dev)
     sh_degree = params.max_sh_degree
     camera = trained_orbit_camera(orbit, width, height, device=dev)
-    probe_cfg = RasterConfig(tile_w=TILE, tile_h=TILE, max_instances=probe_budget,
+    probe_cfg = RasterConfig(tile_w=tile_w, tile_h=tile_h, max_instances=probe_budget,
                              max_rows=probe_budget)
     with torch.no_grad():
         probe = render(params, camera, active_sh_degree=sh_degree,
                        bg_color=torch.zeros(3, device=dev), cfg=probe_cfg,
                        alive=aux.alive)
-    cfg = RasterConfig(tile_w=TILE, tile_h=TILE,
+    cfg = RasterConfig(tile_w=tile_w, tile_h=tile_h,
                        max_instances=pow2_budget(int(probe.num_instances), 1.03),
                        max_rows=pow2_budget(int(probe.num_rows), 1.03))
     return params, aux, camera, cfg, sh_degree

@@ -18,7 +18,7 @@ import torch
 
 from gsjax_torch.config import RasterConfig
 from gsjax_torch.core.cameras import Camera
-from gsjax_torch.render.api import depth_sorted_bins
+from gsjax_torch.render.api import depth_sorted_bins, render
 from gsjax_torch.render.binning import Binning, num_tiles
 from gsjax_torch.render.common import build_inst_data
 from gsjax_torch.render.preprocess import preprocess
@@ -107,6 +107,19 @@ def instance_stream(params, camera, cfg, alive=None, sh_degree: int = SH_DEGREE)
 
 
 # --- timing on the card ---------------------------------------------------------
+
+
+def forward_frame(params, aux, camera, cfg, sh_degree: int = SH_DEGREE):
+    """A viewer frame's work as a callable: render() under no_grad on a
+    black background, returning its RenderOutput."""
+    bg = torch.zeros(3, device=params.device)
+
+    def frame():
+        with torch.no_grad():
+            return render(params, camera, active_sh_degree=sh_degree, bg_color=bg,
+                          cfg=cfg, alive=aux.alive)
+
+    return frame
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:

@@ -191,15 +191,12 @@ def check(table_of_stages: dict, outputs: dict) -> None:
                                  "from bin_gaussians'")
 
 
-def run(device=None, n: int | None = None, width: int | None = None,
-        height: int | None = None, budgets: dict | None = None) -> list[dict]:
-    """One row per stage. On the card: event ms, device ms, device
-    operations per run (and kernel_ms for the stages that are one kernel). With
-    device="cpu" (and a small scene) every stage runs once and is checked;
-    nothing is timed."""
-    kw = {k: v for k, v in dict(n=n, width=width, height=height,
-                                budgets=budgets).items() if v is not None}
-    params, aux, camera, cfg = bench_scene(device=device, **kw)
+def profile(params, aux, camera, cfg, iters: int = ITERS,
+            device_reps: int = DEVICE_REPS) -> list[dict]:
+    """One row per stage of binning this scene and view. On the card:
+    event ms, device ms, device operations per run (and kernel_ms for the
+    stages that are one kernel). On the CPU every stage runs once and is
+    checked; nothing is timed."""
     table_of_stages, outputs = stages(params, aux, camera, cfg)
     check(table_of_stages, outputs)
     on_card = params.device.type == "cuda"
@@ -207,11 +204,11 @@ def run(device=None, n: int | None = None, width: int | None = None,
     for name, fn in table_of_stages.items():
         row = {"tool": "profile_binning", "stage": name}
         if on_card:
-            row.update(event_ms=cuda_ms(fn, ITERS, warmup=1),
-                       device_ms=device_ms(fn, None, DEVICE_REPS),
+            row.update(event_ms=cuda_ms(fn, iters, warmup=1),
+                       device_ms=device_ms(fn, None, device_reps),
                        device_ops=device_ops(fn))
             if name in KERNEL_NAMES:
-                row["kernel_ms"] = device_ms(fn, KERNEL_NAMES[name], DEVICE_REPS)
+                row["kernel_ms"] = device_ms(fn, KERNEL_NAMES[name], device_reps)
         else:
             fn()
             row["device_ms"] = "not measured"
@@ -221,6 +218,15 @@ def run(device=None, n: int | None = None, width: int | None = None,
                  "budgets": {"max_instances": cfg.max_instances,
                              "max_rows": cfg.max_rows}})
     return rows
+
+
+def run(device=None, n: int | None = None, width: int | None = None,
+        height: int | None = None, budgets: dict | None = None) -> list[dict]:
+    """profile() of the bench scene; with device="cpu" (and a small scene)
+    every stage runs once and is checked."""
+    kw = {k: v for k, v in dict(n=n, width=width, height=height,
+                                budgets=budgets).items() if v is not None}
+    return profile(*bench_scene(device=device, **kw))
 
 
 def main() -> None:

@@ -49,19 +49,10 @@ def _device_ms(fn, kernel_name: str, reps: int = REPS) -> float:
     raise AssertionError(f"the profiler saw no device time for {kernel_name}")
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--tile", default="32x32")
-    tw, th = map(int, ap.parse_args().tile.split("x"))
-    if not torch.cuda.is_available():
-        raise SystemExit("time_composite: no CUDA device; it measures the card")
-    kernels.build()
-    params, aux = random_scene(500_000, capacity=500_000, sh_degree=3, seed=0,
-                               spread=2.5, scale_range=(0.004, 0.03))
-    camera = look_at_origin_camera(1920, 1080)
-    scale = max(1, -(-32 * 32 // (tw * th)))
-    cfg = RasterConfig(tile_w=tw, tile_h=th,
-                       **{k: v * scale for k, v in BUDGETS.items()})
+def kernel_times(params, aux, camera, cfg, reps: int = REPS) -> dict:
+    """Each composite kernel's device ms on the arguments a render of
+    `camera` and its backward give it, and the view's instance and row
+    counts (above the budgets, the stream overflowed)."""
     calls = {}
     real = {k: getattr(kernels, k) for k in ("composite_forward", "composite_backward")}
 
@@ -81,16 +72,34 @@ def main() -> None:
     finally:
         for name, fn in real.items():
             setattr(kernels, name, fn)
-    n_inst, n_rows = int(out.num_instances), int(out.num_rows)
-    if n_inst > cfg.max_instances or n_rows > cfg.max_rows:
-        raise SystemExit(f"time_composite: the stream overflowed ({n_inst}, {n_rows})")
-    line = {"tool": "time_composite", "tile": f"{tw}x{th}",
-            "device": torch.cuda.get_device_name(0),
-            "package": str(kernels.CSRC.parent), "num_instances": n_inst}
+        params.zero_grad(set_to_none=True)
+    line = {"num_instances": int(out.num_instances), "num_rows": int(out.num_rows)}
     with torch.no_grad():
         for name, fn in real.items():
             args, kw = calls[name]
-            line[f"{name}_ms"] = _device_ms(lambda: fn(*args, **kw), f"{name}_kernel")
+            line[f"{name}_ms"] = _device_ms(lambda: fn(*args, **kw), f"{name}_kernel", reps)
+    return line
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--tile", default="32x32")
+    tw, th = map(int, ap.parse_args().tile.split("x"))
+    if not torch.cuda.is_available():
+        raise SystemExit("time_composite: no CUDA device; it measures the card")
+    kernels.build()
+    params, aux = random_scene(500_000, capacity=500_000, sh_degree=3, seed=0,
+                               spread=2.5, scale_range=(0.004, 0.03))
+    camera = look_at_origin_camera(1920, 1080)
+    scale = max(1, -(-32 * 32 // (tw * th)))
+    cfg = RasterConfig(tile_w=tw, tile_h=th,
+                       **{k: v * scale for k, v in BUDGETS.items()})
+    line = {"tool": "time_composite", "tile": f"{tw}x{th}",
+            "device": torch.cuda.get_device_name(0),
+            "package": str(kernels.CSRC.parent)}
+    line.update(kernel_times(params, aux, camera, cfg))
+    if line["num_instances"] > cfg.max_instances or line["num_rows"] > cfg.max_rows:
+        raise SystemExit(f"time_composite: the stream overflowed ({line})")
     print(json.dumps(line), flush=True)
 
 

@@ -22,8 +22,12 @@ Torch specifics:
 * `debug_from` turns on torch.autograd.set_detect_anomaly (the
   reference's own flag), which a graph cannot capture: from then on the
   windows run their steps eagerly.
-* Not ported: the viewer (`gui`), the mesh-sharded step (`mesh`) and the
-  orbax checkpoint (`use_orbax`); passing one raises NotImplementedError.
+* The viewer (`gui`, a gsjax_torch.viewer.NetworkGUI) is polled at the
+  top of each window, between graph replays: its frames render eagerly
+  and read the state's tensors without writing any.
+* Not ported: the mesh-sharded step (`mesh`, ROADMAP queue item 6) and
+  the orbax checkpoint (`use_orbax`, ROADMAP §3); passing one raises
+  NotImplementedError.
 """
 
 from __future__ import annotations
@@ -129,10 +133,8 @@ class Trainer:
         if use_orbax or (start_checkpoint and os.path.isdir(start_checkpoint)):
             raise NotImplementedError(
                 "orbax checkpoints are not ported (ROADMAP §3): use the npz form")
-        if gui is not None:
-            raise NotImplementedError(
-                "the viewer is not ported yet (ROADMAP queue item 5)")
         self.scene = scene
+        self.gui = gui
         self.model_cfg = model_cfg
         self.opt_cfg = opt_cfg
         self.pipe_cfg = pipe_cfg
@@ -197,20 +199,33 @@ class Trainer:
         return int(self.state.aux.n_alive())
 
     @torch.no_grad()
-    def render_view(self, camera) -> torch.Tensor:
-        """One render through the public API (eval, TensorBoard). The
-        PipelineConfig's convert_SHs_python / compute_cov3D_python select
-        the standalone mirror math paths (reference
-        gaussian_renderer/__init__.py:57-82)."""
+    def render_view(
+        self,
+        camera,
+        scaling_modifier: float = 1.0,
+        shs_python: bool | None = None,
+        cov3d_python: bool | None = None,
+        fast: bool = False,
+    ) -> torch.Tensor:
+        """One render through the public API (viewer, eval, TensorBoard).
+        The *_python flags select the standalone mirror math paths
+        (reference pipe.convert_SHs_python / compute_cov3D_python,
+        gaussian_renderer/__init__.py:57-82) and default to the
+        PipelineConfig's; fast=True renders with RasterConfig.fast_fwd
+        (inference only, within 4e-3 of exact; the viewer's frames)."""
+        shs = self.pipe_cfg.convert_SHs_python if shs_python is None else shs_python
+        cov = self.pipe_cfg.compute_cov3D_python if cov3d_python is None else cov3d_python
+        cfg = dataclasses.replace(self.raster_cfg, fast_fwd=True) if fast else self.raster_cfg
         return render(
             self.state.params,
             camera,
             active_sh_degree=self.active_sh_degree,
             bg_color=self.background,
-            cfg=self.raster_cfg,
+            cfg=cfg,
+            scaling_modifier=scaling_modifier,
             alive=self.state.aux.alive,
-            convert_shs_outside=self.pipe_cfg.convert_SHs_python,
-            compute_cov3d_outside=self.pipe_cfg.compute_cov3D_python,
+            convert_shs_outside=shs,
+            compute_cov3d_outside=cov,
         ).image
 
     # ------------------------------------------------------------- main loop
@@ -374,6 +389,8 @@ class Trainer:
 
         iteration = self.first_iter
         while iteration < iters:
+            self._poll_gui(iteration + 1, iters)
+
             # SH degree schedule: the next step is iteration+1; bump when it
             # crosses a multiple of 1000 (reference: train.py:71-73).
             if (iteration + 1) % 1000 == 0:
@@ -509,6 +526,35 @@ class Trainer:
                 self.events.append({"host": iteration, "ms": work})
         if progress is not None:
             progress.close()
+
+    def _poll_gui(self, iteration: int, total_iters: int) -> None:
+        """Viewer polling (reference: train.py:52-66): connect if no client
+        is connected, then serve its requests until one asks to train (and
+        the run is not over, or the client does not keep it alive); any
+        error drops the connection."""
+        gui = self.gui
+        if gui is None:
+            return
+        if gui.conn is None:
+            gui.try_connect()
+        while gui.conn is not None:
+            try:
+                image_bytes = None
+                req = gui.receive(self.device)
+                if req.camera is not None:
+                    img = self.render_view(
+                        req.camera,
+                        req.scaling_modifier,
+                        shs_python=req.do_shs_python,
+                        cov3d_python=req.do_rot_scale_python,
+                        fast=True,
+                    )
+                    image_bytes = gui.image_to_bytes(img)
+                gui.send(image_bytes, self.model_cfg.source_path)
+                if req.do_training and (iteration < total_iters or not req.keep_alive):
+                    break
+            except Exception:
+                gui.drop()
 
     def _profile_at(self, iteration: int) -> None:
         """A torch.profiler trace of the windows from step 100 to 110,
