@@ -81,6 +81,18 @@ Phases, one JSON line each (any failure exits non-zero):
            time by op and by op family, idle gaps), trace_binning,
            profile_kernels (16x16 tiles) and bench_sweep (32x32, 16x16);
            after the trainer phase, bench_trained on its PLY
+  mesh     the device mesh (gsjax_torch.parallel) on this card: a
+           world-size-1 NCCL group and a 1x1 ("data", "tile") DeviceMesh on
+           the bench scene; render_sharded and composite_slab at 2 and 4
+           slabs (stitched) against render() within 2e-5, the slabs' pair
+           and row counts against the view's; the five kernels on the slab
+           against their plain versions; sharded_grads against the eager
+           step's gradients (loss rtol 1e-5, gradients 5e-3 of each
+           column's largest) and one sharded step after Adam against
+           train_step; launches per sharded step; ms per step of the eager
+           sharded step and of train_step in turns; the group's start-up
+           seconds; a Trainer on the mesh for 32 iterations on the scene
+           phase's Scene. After the profiled phases, before the trainer
   trainer  `python -m gsjax_torch.cli.train` (through main) on a COLMAP
            dataset of the bench scene (as the scene phase writes it) with
            --eval, 300 iterations, the viewer listening on a free port:
@@ -1537,6 +1549,241 @@ def phase_scene(torch, kernels, render, params):
     return scene, cfg
 
 
+# --- the device mesh (gsjax_torch.parallel) on one card -------------------------
+
+MESH_STEPS = 5
+MESH_TRAINER_ITERATIONS = 32
+MESH_IMAGE_ATOL = 2e-5
+MESH_LOSS_RTOL = 1e-5
+MESH_GRAD_TOL = 5e-3
+MESH_SLAB_SPLITS = (2, 4)
+
+
+def mesh_gradients(torch, params, aux, camera, gt, cfg):
+    """The eager single-device objective of train_step and its parameter
+    gradients (render, L1 + SSIM, autograd)."""
+    from gsjax_torch.config import OptimizationConfig
+    from gsjax_torch.model import PARAM_NAMES
+    from gsjax_torch.render.api import render
+    from gsjax_torch.train.loss import l1_loss, ssim
+
+    lam = OptimizationConfig().lambda_dssim
+    img = render(params, camera, active_sh_degree=3, bg_color=torch.zeros(3, device=gt.device),
+                 cfg=cfg, alive=aux.alive).image
+    loss = (1.0 - lam) * l1_loss(img, gt) + lam * (1.0 - ssim(img, gt))
+    grads = torch.autograd.grad(loss, [getattr(params, k) for k in PARAM_NAMES])
+    return float(loss.detach()), dict(zip(PARAM_NAMES, grads))
+
+
+def stitched_slabs(torch, params, aux, camera, cfg, n_tile):
+    """composite_slab for each of n_tile slabs in this one process, the
+    slabs stitched and cropped, the background (zeros) applied; and each
+    slab's [num_instances, num_rows]."""
+    from gsjax_torch.parallel.render import composite_slab, slab_rows
+    from gsjax_torch.render.preprocess import preprocess
+
+    rows = slab_rows(camera.height, n_tile, cfg.th)
+    with torch.no_grad():
+        proj = preprocess(xyz=params.xyz, sh=params.get_features(),
+                          opacity=params.get_opacity(), scaling=params.get_scaling(),
+                          rotation=params.rotation, camera=camera, active_sh_degree=3,
+                          alive=aux.alive)
+        slabs, counts = [], []
+        for i in range(n_tile):
+            color, t, c = composite_slab(
+                proj.mean_pix, proj.conic, proj.rgb, proj.opacity, proj.depth, proj.ext,
+                proj.qmax, height=camera.height, width=camera.width, cfg=cfg,
+                py0=float(i * rows * cfg.th), rows=rows)
+            slabs.append(color)
+            counts.append([int(v) for v in c])
+        image = torch.cat(slabs, dim=1)[:, :camera.height, :camera.width]
+    return image, counts, rows
+
+
+def phase_mesh(torch, kernels, render, params, aux, camera, gt_camera, scene, scene_cfg):
+    """The mesh path (gsjax_torch.parallel) on this one card: a world-size-1
+    NCCL group started in this process (127.0.0.1, a free port) and a 1x1
+    ("data", "tile") DeviceMesh; the bench scene at full width (500k
+    Gaussians, SH degree 3, 1920x1080, 32x32 tiles, the bench budgets).
+    Checks: render_sharded against render() within 2e-5; composite_slab
+    for each slab at n_tile 2 and 4, stitched, against render() within
+    2e-5, the slabs' pair and row counts summing to the view's exactly at
+    n_tile 2 (34 tile rows split evenly) and at least to them at n_tile 4
+    (the last slab overruns); the five kernels on the 1x1 slab against
+    their plain versions; sharded_grads against the eager step's gradients
+    (loss rtol 1e-5, gradients 5e-3 of each column's largest); one sharded
+    step's parameters after Adam against train_step's (fewer than 0.5 % of
+    elements beyond 5e-5 + 1e-3 |b|); a Trainer on the mesh for 32
+    iterations on the scene phase's Scene, its loss finite. Timings: the
+    group's start-up seconds (rendezvous and the first all_reduce), ms per
+    step of the eager sharded step and of train_step in turns, launches of
+    the five kernels per sharded step (counts set to 0 just before
+    MESH_STEPS sharded steps and read just after). The group is destroyed
+    at the end. Returns ({kernel: launches per sharded step}, {kernel: max
+    abs error on the slab})."""
+    import torch.distributed as dist
+
+    from gsjax_torch.config import OptimizationConfig, RasterConfig
+    from gsjax_torch.model import PARAM_NAMES
+    from gsjax_torch.parallel import make_mesh, render_sharded
+    from gsjax_torch.parallel.multihost import init_local_group
+    from gsjax_torch.parallel.step import make_sharded_train_step
+    from gsjax_torch.tools import bench_mesh_overhead
+    from gsjax_torch.train.optimizer import adam_init
+    from gsjax_torch.train.step import TrainState, clone_state, train_step
+    from gsjax_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    dev = params.device
+    cfg = RasterConfig(tile_w=32, tile_h=32, **BENCH_BUDGETS)
+    line = {"phase": "mesh", "mesh": [1, 1], "backend": "nccl", "gaussians": BENCH_N,
+            "width": BENCH_W, "height": BENCH_H, "tile": "32x32"}
+    t0 = time.perf_counter()
+    port = init_local_group("cuda")
+    try:
+        mesh = make_mesh("cuda", data=1, tile=1)
+        warm = torch.ones(1, device=dev)
+        dist.all_reduce(warm)
+        torch.cuda.synchronize()
+        line.update(nccl_init_s=time.perf_counter() - t0, port=port,
+                    warm_all_reduce=float(warm))
+        if float(warm) != 1.0:
+            raise AssertionError(f"mesh: a one-rank all_reduce gave {float(warm)}")
+        bg = torch.zeros(3, device=dev)
+
+        # render_sharded and the slabs against render().
+        with torch.no_grad():
+            full = render(params, camera, active_sh_degree=3, bg_color=bg, cfg=cfg,
+                          alive=aux.alive)
+            sharded = render_sharded(params, camera, mesh=mesh, active_sh_degree=3,
+                                     bg_color=bg, cfg=cfg, alive=aux.alive)
+        err = float((sharded - full.image).abs().max())
+        line["render_sharded_max_abs_err"] = err
+        if not err <= MESH_IMAGE_ATOL:
+            raise AssertionError(f"mesh: render_sharded vs render {err} > {MESH_IMAGE_ATOL}")
+        view_counts = [int(full.num_instances), int(full.num_rows)]
+        line["view_counts"] = view_counts
+        for n_tile in MESH_SLAB_SPLITS:
+            image, counts, rows = stitched_slabs(torch, params, aux, camera, cfg, n_tile)
+            err = float((image - full.image).abs().max())
+            sums = [sum(c[0] for c in counts), sum(c[1] for c in counts)]
+            line[f"slabs_{n_tile}"] = {"rows_per_slab": rows, "max_abs_err": err,
+                                       "counts": counts, "sums": sums}
+            if not err <= MESH_IMAGE_ATOL:
+                raise AssertionError(f"mesh: {n_tile} stitched slabs vs render {err}")
+            # Split evenly, the slabs partition the view's pairs and rows; a
+            # last slab past the image may bin Gaussians the view does not.
+            even = rows * n_tile == -(-BENCH_H // cfg.th)
+            line[f"slabs_{n_tile}"]["split_evenly"] = even
+            if even and sums != view_counts or not even and (
+                    sums[0] < view_counts[0] or sums[1] < view_counts[1]):
+                raise AssertionError(f"mesh: {n_tile} slabs count {sums} against the "
+                                     f"view's {view_counts}")
+        del full, sharded, image
+
+        # The sharded step on the bench scene: gradients, Adam, the kernels.
+        with torch.no_grad():
+            gt = render(params, gt_camera, active_sh_degree=3, bg_color=bg, cfg=cfg,
+                        alive=aux.alive).image
+        opt_cfg = OptimizationConfig()
+        step = make_sharded_train_step(
+            mesh, height=BENCH_H, width=BENCH_W, active_sh_degree=3, opt_cfg=opt_cfg,
+            raster_cfg=cfg, spatial_lr_scale=SPATIAL_LR_SCALE)
+        args = (camera.view[None], camera.full_proj[None], camera.cam_center[None],
+                camera.tan_fovx[None], camera.tan_fovy[None], gt[None])
+        want_loss, want = mesh_gradients(torch, params, aux, camera, gt, cfg)
+        with Recorder(kernels) as rec:
+            g, _, _, _, loss, _, counts = step.sharded_grads(params, aux.alive, *args, bg)
+        slab_calls = dict(rec.calls)
+        rel = abs(float(loss) - want_loss) / abs(want_loss)
+        grad_err = {}
+        for k in PARAM_NAMES:
+            a = g[k].reshape(BENCH_N, -1)
+            b = want[k].reshape(BENCH_N, -1)
+            scale = b.abs().amax(dim=0).clamp(min=1e-30)
+            grad_err[k] = float(((a - b).abs() / scale).max())
+        line.update(loss=float(loss), eager_loss=want_loss, loss_rel_err=rel,
+                    grad_err_of_column_max=grad_err, counts=[int(v) for v in counts])
+        if not rel <= MESH_LOSS_RTOL or not all(v <= MESH_GRAD_TOL for v in grad_err.values()):
+            raise AssertionError(f"mesh: sharded_grads vs the eager step: loss {rel}, "
+                                 f"gradients {grad_err}")
+        del g, want
+
+        # The five kernels on the slab's own arguments.
+        slab_errs = check_backward_kernels(
+            kernels, slab_calls, dict.fromkeys(kernels.KERNEL_NAMES, 0.0), "mesh slab")
+        slab_errs = {k: v[0] for k, v in slab_errs.items()}
+        for name in FORWARD_KERNELS:
+            a, kw = slab_calls[name]
+            with torch.no_grad():
+                slab_errs[name] = max_err(getattr(kernels, name)(*a, **kw),
+                                          getattr(kernels, f"{name}_plain")(*a, **kw))
+            tol = 2e-3 if name == "composite_forward" else 0.0
+            if not slab_errs[name] <= tol:
+                raise AssertionError(f"mesh slab: {name} vs plain {slab_errs[name]} > {tol}")
+        line["slab_kernel_max_abs_err"] = slab_errs
+        del slab_calls
+
+        # One sharded step after Adam against train_step from the same state.
+        start = TrainState(params=params, opt=adam_init(params), aux=aux,
+                           step=torch.ones((), dtype=torch.int32, device=dev))
+        s1, m1 = train_step(clone_state(start), camera, gt, bg, active_sh_degree=3,
+                            opt_cfg=opt_cfg, raster_cfg=cfg,
+                            spatial_lr_scale=SPATIAL_LR_SCALE)
+        s2, m2 = step(clone_state(start), *args, bg)
+        bad = {}
+        for k in PARAM_NAMES:
+            a, b = getattr(s2.params, k).detach(), getattr(s1.params, k).detach()
+            bad[k] = float(((a - b).abs() > 5e-5 + 1e-3 * b.abs()).float().mean())
+        line.update(adam_mismatch_share=bad, step_loss=float(m2.loss),
+                    train_step_loss=float(m1.loss))
+        if not all(v < 0.005 for v in bad.values()):
+            raise AssertionError(f"mesh: sharded step vs train_step after Adam: {bad}")
+        del s1, s2, start
+
+        # Launches per sharded step, the counts set to 0 just before.
+        state = clone_state(TrainState(params=params, opt=adam_init(params), aux=aux,
+                                       step=torch.ones((), dtype=torch.int32, device=dev)))
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        for _ in range(MESH_STEPS):
+            state, m = step(state, *args, bg)
+        torch.cuda.synchronize()
+        per_step = {k: kernels.launch_counts[k] / MESH_STEPS for k in kernels.KERNEL_NAMES}
+        line["launches_per_sharded_step"] = per_step
+        missing = [k for k, v in per_step.items() if v == 0]
+        if missing or not math.isfinite(float(m.loss)):
+            raise AssertionError(f"mesh: kernels not launched {missing}, loss {float(m.loss)}")
+        del state
+
+        # ms per step: the eager sharded step and train_step, in turns.
+        line["overhead"] = bench_mesh_overhead.run(params, aux, camera, cfg, mesh)
+
+        # A Trainer on the mesh, on the scene phase's Scene.
+        cams = [scene.get_train_banks()[0].pick(i)[0] for i in range(4)]
+        tcfg, peaks = sized_config(torch, render, scene.params, scene.aux, cams, 3)
+        trainer = Trainer(scene, scene_cfg, OptimizationConfig(
+            iterations=MESH_TRAINER_ITERATIONS), raster_cfg=tcfg, quiet=True, mesh=mesh)
+        trainer.active_sh_degree = 3
+        t0 = time.perf_counter()
+        trainer.train(test_iterations=(), save_iterations=(), checkpoint_iterations=())
+        torch.cuda.synchronize()
+        windows = [e for e in trainer.events if "window" in e]
+        line["trainer"] = {"iterations": int(trainer.state.step), "windows": windows,
+                           "budgets": [tcfg.max_instances, tcfg.max_rows], "peaks": peaks,
+                           "seconds": time.perf_counter() - t0,
+                           "ms_per_step": sum(e["ms"] for e in windows)
+                           / max(sum(e["steps"] for e in windows), 1)}
+        if int(trainer.state.step) != MESH_TRAINER_ITERATIONS:
+            raise AssertionError(f"mesh: the Trainer stopped at {int(trainer.state.step)}")
+        del trainer
+    finally:
+        dist.destroy_process_group()
+    line["phase_seconds"] = time.perf_counter() - t_phase
+    emit(line)
+    return per_step, slab_errs
+
+
 # --- the viewer, LPIPS and the remaining profilers (queue item 7) -----------------
 
 VIEWER_FRAMES = 20
@@ -2128,7 +2375,6 @@ def main() -> int:
 
     # --- the viewer's serving path on the scene phase's Scene -----------------
     phase_viewer(torch, kernels, render, scene, scene_cfg, views)
-    del scene
 
     # --- the cull: warp counts, the twins, main against twin in turns ---------
     twin_ms = phase_cull(torch, kernels, tool_kernels, origin_calls, train_calls)
@@ -2256,6 +2502,18 @@ def main() -> int:
                             tools[1], tools[2], twin_ms, main_launches)
     if not all(math.isfinite(e["ms"]) for e in entries):
         raise AssertionError("kernel timing failed")
+
+    # --- the device mesh on this card: a 1x1 mesh over NCCL --------------------
+    # After the profiled measurements (it times by CUDA events and the host
+    # clock only), before the trainer phase.
+    mesh_launches, mesh_errs = phase_mesh(
+        torch, kernels, render, params, aux, views["origin"], views["orbit+0.15"],
+        scene, scene_cfg)
+    del scene
+    for e in entries:
+        if e["name"] in mesh_launches:
+            e["mesh_launches_per_step"] = mesh_launches[e["name"]]
+            e["mesh_slab_max_abs_err"] = mesh_errs[e["name"]]
 
     # --- the training CLI, render and metrics on a dataset on disk ------------
     # Last of the measurements: after its run torch.profiler sessions in this

@@ -9,10 +9,11 @@ it with CLI flags taking precedence (get_combined_args).
 
 `--data_device` (reference: where the images live) names the device the
 port's scene, model and training run on: "cuda" by default, "cpu" on
-request. The mesh flags (`--data_parallel`, `--tile_parallel`) and
-`--orbax` are parsed as gsjax parses them; the train CLI refuses values
-that ask for a mesh or orbax, which are not ported. `--ip` / `--port` are
-the address the train CLI's viewer server (gsjax_torch.viewer) listens on.
+request. The mesh flags (`--data_parallel`, `--tile_parallel`) are
+gsjax's: above 1 the train CLI trains on a device mesh, one process per
+device under torchrun. `--orbax` is parsed as gsjax parses it and refused:
+orbax checkpoints are not ported. `--ip` / `--port` are the address the
+train CLI's viewer server (gsjax_torch.viewer) listens on.
 """
 
 from __future__ import annotations
@@ -115,11 +116,11 @@ def make_train_parser() -> ArgumentParser:
     )
     parser.add_argument(
         "--data_parallel", type=int, default=1,
-        help="cameras per step over a device mesh (not ported: only 1)",
+        help="cameras per step (data-parallel batch over the device mesh)",
     )
     parser.add_argument(
         "--tile_parallel", type=int, default=1,
-        help="devices sharding the tile grid (not ported: only 1)",
+        help="devices sharding the tile grid (tile-slab parallelism)",
     )
     parser.add_argument(
         "--profile_dir", type=str, default=None,

@@ -14,11 +14,13 @@ composite kernels and the gathers.
 
     python -m gsjax_torch.tools.trace_step [--sharded]
 
+--sharded traces the mesh-sharded step (gsjax_torch.parallel.step) on a
+(data=1, tile=1) mesh of this one card instead, in a world-size-1 NCCL
+group: its families also hold the halo exchange and the collectives.
+
 Prints JSON lines: the step's ms by CUDA events (untraced), then the
 trace: device busy ms, makespan and idle share per step with the largest
-idle gaps, ms by family, and the top operations by name. --sharded (the
-mesh step of the JAX tool) raises NotImplementedError: the mesh is not
-ported (ROADMAP queue item 6).
+idle gaps, ms by family, and the top operations by name.
 """
 
 from __future__ import annotations
@@ -27,7 +29,10 @@ import argparse
 import json
 
 import torch
+import torch.distributed as dist
 
+from gsjax_torch.parallel import render as parallel_render
+from gsjax_torch.parallel import step as parallel_step
 from gsjax_torch.render import api as render_api
 from gsjax_torch.render import kernels
 from gsjax_torch.tools import trace
@@ -48,6 +53,20 @@ MARKS = (
     (step_mod, "make_lr_tree", "Adam"),
     (step_mod, "adam_update", "Adam"),
     (step_mod, "add_densification_stats", "densify statistics"),
+)
+# The sharded step's functions: the slab's binning, composite and untiling
+# (parallel/render.py), and the step's own (parallel/step.py).
+SHARDED_MARKS = (
+    (parallel_step, "preprocess", "preprocess"),
+    (parallel_render, "bin_gaussians", "binning"),
+    (parallel_render, "permute_rows", "binning"),
+    (parallel_render, "composite", "composite other"),
+    (parallel_render, "untile_image", "untile"),
+    (parallel_step, "halo_exchange", "halo exchange"),
+    (parallel_step, "ssim_map", "SSIM"),
+    (parallel_step, "make_lr_tree", "Adam"),
+    (parallel_step, "adam_update", "Adam"),
+    (dist, "all_reduce", "collectives"),
 )
 
 
@@ -74,7 +93,35 @@ def bench_step(params, aux, camera, cfg):
     return run
 
 
-def trace_ops(fn, steps: int) -> list[trace.DeviceOp]:
+def sharded_bench_step(params, aux, camera, cfg, mesh):
+    """bench_step's counterpart for the mesh-sharded step on `mesh` (the
+    batch of one camera per data group is the one view)."""
+    from gsjax_torch.config import OptimizationConfig
+    from gsjax_torch.parallel.mesh import dim_size
+    from gsjax_torch.train.optimizer import adam_init
+
+    dev = params.device
+    b = dim_size(mesh, "data")
+    state = step_mod.clone_state(step_mod.TrainState(
+        params=params, opt=adam_init(params), aux=aux,
+        step=torch.ones((), dtype=torch.int32, device=dev)))
+    step = parallel_step.make_sharded_train_step(
+        mesh, height=camera.height, width=camera.width, active_sh_degree=3,
+        opt_cfg=OptimizationConfig(), raster_cfg=cfg, spatial_lr_scale=1.0)
+    args = tuple(t[None].expand(b, *t.shape) for t in (
+        camera.view, camera.full_proj, camera.cam_center, camera.tan_fovx,
+        camera.tan_fovy, torch.zeros((3, camera.height, camera.width), device=dev)))
+    bg = torch.zeros(3, device=dev)
+    holder = {"state": state}
+
+    def run():
+        holder["state"], m = step(holder["state"], *args, bg)
+        return m.loss
+
+    return run
+
+
+def trace_ops(fn, steps: int, marks=MARKS) -> list[trace.DeviceOp]:
     """The device operations of `steps` runs of fn() under the profiler,
     with the marks' ranges open; a session without device operations is
     taken again (tools/common.PROFILE_TRIES)."""
@@ -82,7 +129,7 @@ def trace_ops(fn, steps: int) -> list[trace.DeviceOp]:
 
     for _ in range(PROFILE_TRIES):
         torch.cuda.synchronize()
-        with trace.marked(MARKS), profile(
+        with trace.marked(marks), profile(
                 activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
                 fn()
@@ -93,16 +140,21 @@ def trace_ops(fn, steps: int) -> list[trace.DeviceOp]:
     raise AssertionError(f"the profiler saw no device operation in {PROFILE_TRIES} sessions")
 
 
-def run(params, aux, camera, cfg) -> dict:
-    """The step's event ms and its traced split, as one dict."""
+def run(params, aux, camera, cfg, mesh=None) -> dict:
+    """The step's event ms and its traced split, as one dict: train_step,
+    or with a mesh the sharded step."""
     steps = STEPS
-    fn = bench_step(params, aux, camera, cfg)
+    if mesh is None:
+        fn, marks = bench_step(params, aux, camera, cfg), MARKS
+    else:
+        fn, marks = sharded_bench_step(params, aux, camera, cfg, mesh), SHARDED_MARKS
     step_ms = cuda_ms(fn, reps=3, warmup=WARMUP)
-    ops = trace_ops(fn, steps)
+    ops = trace_ops(fn, steps, marks)
     gaps = trace.idle_gaps([(op.start_us, op.end_us) for op in ops])
     fam = trace.by_family(ops, per=steps)
     return {
-        "tool": "trace_step", "steps": steps, "step_ms": step_ms,
+        "tool": "trace_step", "sharded": mesh is not None, "steps": steps,
+        "step_ms": step_ms,
         "device_ops_per_step": len(ops) / steps,
         "busy_ms": gaps["busy"] / 1e3 / steps,
         "makespan_ms": gaps["makespan"] / 1e3 / steps,
@@ -117,16 +169,22 @@ def run(params, aux, camera, cfg) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--sharded", action="store_true",
-                    help="the mesh step (not ported: ROADMAP queue item 6)")
+                    help="the mesh-sharded step on a 1x1 mesh of this card")
     args = ap.parse_args(argv)
-    if args.sharded:
-        raise NotImplementedError(
-            "trace_step --sharded traces the mesh step, which is not ported yet "
-            "(ROADMAP queue item 6)")
     require_card("trace_step")
     kernels.build()
     params, aux, camera, cfg = bench_scene()
-    out = run(params, aux, camera, cfg)
+    if args.sharded:
+        from gsjax_torch.parallel import make_mesh
+        from gsjax_torch.parallel.multihost import init_local_group
+
+        init_local_group("cuda")
+        try:
+            out = run(params, aux, camera, cfg, make_mesh("cuda", data=1, tile=1))
+        finally:
+            dist.destroy_process_group()
+    else:
+        out = run(params, aux, camera, cfg)
     by_name = out.pop("by_name")
     print(json.dumps({"device": torch.cuda.get_device_name(0), **out}), flush=True)
     for row in by_name:

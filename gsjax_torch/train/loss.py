@@ -38,33 +38,42 @@ def _gaussian_taps(window_size: int, sigma: float) -> tuple[float, ...]:
     return tuple(float(v) for v in g.astype(np.float32))
 
 
-def _depthwise_conv(img: torch.Tensor, taps, pad: int) -> torch.Tensor:
+def _depthwise_conv(
+    img: torch.Tensor, taps, pad: int, pad_h: bool = True
+) -> torch.Tensor:
     """[C,H,W] zero-padded depthwise conv of the separable window: a row
     pass then a column pass, each a chain of shifted slices times a tap
-    (the 2-D kernel is outer(g, g), so this is the same linear map)."""
+    (the 2-D kernel is outer(g, g), so this is the same linear map).
+
+    pad_h=False runs the column pass in VALID mode (output H = input H -
+    2*pad): the caller supplies its own pad halo rows top and bottom, as the
+    tile-sharded loss does with its neighbours' rows."""
     k = len(taps)
     h, w = img.shape[-2], img.shape[-1]
     xp = F.pad(img, (pad, pad))
     row = taps[0] * xp[:, :, 0:w]
     for i in range(1, k):
         row = row + taps[i] * xp[:, :, i:i + w]
-    rp = F.pad(row, (0, 0, pad, pad))
-    out = taps[0] * rp[:, 0:h, :]
+    if pad_h:
+        rp, h_out = F.pad(row, (0, 0, pad, pad)), h
+    else:
+        rp, h_out = row, h - 2 * pad
+    out = taps[0] * rp[:, 0:h_out, :]
     for i in range(1, k):
-        out = out + taps[i] * rp[:, i:i + h, :]
+        out = out + taps[i] * rp[:, i:i + h_out, :]
     return out
 
 
-def _ssim_terms(img1, img2, window_size, sigma):
+def _ssim_terms(img1, img2, window_size, sigma, pad_h=True):
     """Window means and the four SSIM factor maps A, B, C, D with
     S = A B / (C D) (the reference's fraction, utils/loss_utils.py:52-63)."""
     window = _gaussian_taps(window_size, sigma)
     pad = window_size // 2
-    mu1 = _depthwise_conv(img1, window, pad)
-    mu2 = _depthwise_conv(img2, window, pad)
-    e1 = _depthwise_conv(img1 * img1, window, pad)
-    e2 = _depthwise_conv(img2 * img2, window, pad)
-    e12 = _depthwise_conv(img1 * img2, window, pad)
+    mu1 = _depthwise_conv(img1, window, pad, pad_h)
+    mu2 = _depthwise_conv(img2, window, pad, pad_h)
+    e1 = _depthwise_conv(img1 * img1, window, pad, pad_h)
+    e2 = _depthwise_conv(img2 * img2, window, pad, pad_h)
+    e12 = _depthwise_conv(img1 * img2, window, pad, pad_h)
     c1 = 0.01**2
     c2 = 0.03**2
     a = 2.0 * mu1 * mu2 + c1
@@ -81,23 +90,28 @@ class _SSIMMap(torch.autograd.Function):
     p = u B/(CD), q = u A/(CD), r = -q B/C, t = -q B/D:
       d_img1 = G(2(mu2 (p-q) + mu1 (r-t))) + 2 img1 G(t) + img2 G(2q)
       d_img2 = G(2(mu1 (p-q) + mu2 (r-t))) + 2 img2 G(t) + img1 G(2q)
+    With pad_h=False the column pass is VALID over the caller's halo rows;
+    its adjoint is the same conv of the cotangent zero-padded by pad rows
+    (a FULL conv, the taps being symmetric).
     """
 
     @staticmethod
-    def forward(ctx, img1, img2, window_size, sigma):
-        mu1, mu2, a, b, c, d = _ssim_terms(img1, img2, window_size, sigma)
-        ctx.window = (window_size, sigma)
+    def forward(ctx, img1, img2, window_size, sigma, pad_h):
+        mu1, mu2, a, b, c, d = _ssim_terms(img1, img2, window_size, sigma, pad_h)
+        ctx.window = (window_size, sigma, pad_h)
         ctx.save_for_backward(img1, img2, mu1, mu2, a, b, c, d)
         return (a * b) / (c * d)
 
     @staticmethod
     def backward(ctx, u):
         img1, img2, mu1, mu2, a, b, c, d = ctx.saved_tensors
-        window_size, sigma = ctx.window
+        window_size, sigma, pad_h = ctx.window
         window = _gaussian_taps(window_size, sigma)
         pad = window_size // 2
 
         def gstar(y):
+            if not pad_h:
+                y = F.pad(y, (0, 0, pad, pad))
             return _depthwise_conv(y, window, pad)
 
         inv_cd = 1.0 / (c * d)
@@ -114,16 +128,18 @@ class _SSIMMap(torch.autograd.Function):
         gq2 = gstar(2.0 * q)
         d1 = gstar(g_mu1) + 2.0 * img1 * gt + img2 * gq2
         d2 = gstar(g_mu2) + 2.0 * img2 * gt + img1 * gq2
-        return d1, d2, None, None
+        return d1, d2, None, None, None
 
 
 def ssim_map(
     img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
-    sigma: float = 1.5,
+    sigma: float = 1.5, pad_h: bool = True,
 ) -> torch.Tensor:
     """Per-pixel SSIM map of a [C,H,W] pair (reference:
-    utils/loss_utils.py:43-63)."""
-    return _SSIMMap.apply(img1, img2, window_size, sigma)
+    utils/loss_utils.py:43-63). With pad_h=False the inputs carry
+    window_size//2 halo rows top and bottom, and the map covers only the
+    interior rows (what the whole image's map holds for those rows)."""
+    return _SSIMMap.apply(img1, img2, window_size, sigma, pad_h)
 
 
 def ssim(

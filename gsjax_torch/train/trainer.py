@@ -25,9 +25,14 @@ Torch specifics:
 * The viewer (`gui`, a gsjax_torch.viewer.NetworkGUI) is polled at the
   top of each window, between graph replays: its frames render eagerly
   and read the state's tensors without writing any.
-* Not ported: the mesh-sharded step (`mesh`, ROADMAP queue item 6) and
-  the orbax checkpoint (`use_orbax`, ROADMAP §3); passing one raises
-  NotImplementedError.
+* With a `mesh` (a ("data", "tile") DeviceMesh, gsjax_torch.parallel)
+  every rank runs this loop on its own replica of the state: each window
+  is a Python loop of the mesh-sharded step, one camera per data group;
+  every rank makes the same schedule, densify and reset decisions from the
+  same seeds. Only rank 0 writes files (PLY, checkpoints, snapshots,
+  TensorBoard), evaluates, prints and serves the viewer.
+* Not ported: the orbax checkpoint (`use_orbax`, ROADMAP §3); passing it
+  raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from gsjax_torch.config import (
 )
 from gsjax_torch.image_metrics import psnr as psnr_fn
 from gsjax_torch.model import PARAM_NAMES, GaussianAux, pad_gaussian_params
+from gsjax_torch.parallel.mesh import dim_size
 from gsjax_torch.render.api import render
 from gsjax_torch.train.checkpoint import load_checkpoint_extra, save_checkpoint
 from gsjax_torch.train.densify import densify_and_prune, reset_opacity
@@ -127,27 +133,32 @@ class Trainer:
         mesh=None,
         use_orbax: bool = False,
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-sharded training is not ported yet (ROADMAP queue item 6)")
         if use_orbax or (start_checkpoint and os.path.isdir(start_checkpoint)):
             raise NotImplementedError(
                 "orbax checkpoints are not ported (ROADMAP §3): use the npz form")
+        dev = scene.params.device
+        if mesh is not None and mesh.device_type != dev.type:
+            raise ValueError(f"a {mesh.device_type} mesh cannot train a scene on {dev}")
+        # Optional ("data", "tile") DeviceMesh: trains with the mesh-sharded
+        # step (gsjax_torch/parallel/step.py) instead of train_steps.
+        self.mesh = mesh
+        self._sharded_cache: dict = {}
+        # Rank 0 alone writes files, evaluates, prints and serves the viewer.
+        self.is_main = mesh is None or mesh.get_rank() == 0
         self.scene = scene
-        self.gui = gui
+        self.gui = gui if self.is_main else None
         self.model_cfg = model_cfg
         self.opt_cfg = opt_cfg
         self.pipe_cfg = pipe_cfg
         self.raster_cfg = raster_cfg or RasterConfig()
-        self.tb = tb_writer
-        self.quiet = quiet
+        self.tb = tb_writer if self.is_main else None
+        self.quiet = quiet or not self.is_main
         # torch.profiler trace window; steps 100..110 catch a steady-state
         # window past the first captures.
         self.profile_dir = profile_dir
         self._profile_window = (100, 110)
         self._profiler = None
 
-        dev = scene.params.device
         self.device = dev
         self.active_sh_degree = 0
         self.spatial_lr_scale = float(scene.cameras_extent)
@@ -161,7 +172,7 @@ class Trainer:
             self.active_sh_degree = sh_deg
             self.spatial_lr_scale = lr_scale
             self.first_iter = int(state.step)
-            print(f"Restored checkpoint at iteration {self.first_iter}")
+            self._say(f"Restored checkpoint at iteration {self.first_iter}")
         else:
             self.state = TrainState(
                 params=scene.params,
@@ -195,6 +206,10 @@ class Trainer:
         drop_step_graphs()
 
     # ---------------------------------------------------------------- utils
+    def _say(self, *args) -> None:
+        if self.is_main:
+            print(*args)
+
     def n_alive(self) -> int:
         return int(self.state.aux.n_alive())
 
@@ -313,8 +328,8 @@ class Trainer:
         if "generator" in extra:
             self._generator.set_state(torch.from_numpy(np.array(extra["generator"])))
         elif "key" in extra:
-            print("checkpoint holds a jax.random key: the densify generator "
-                  "starts from seed 0")
+            self._say("checkpoint holds a jax.random key: the densify generator "
+                      "starts from seed 0")
         if "np_rng" in extra:
             self._rng.bit_generator.state = pickle.loads(
                 extra["np_rng"].tobytes()
@@ -348,6 +363,51 @@ class Trainer:
             self.spatial_lr_scale,
             extra=self._host_state_snapshot(),
         )
+
+    def _sharded_steps_for(self, bank):
+        """The mesh-sharded window of steps per (resolution, raster
+        config); the SH degree is passed at call time."""
+        from gsjax_torch.parallel.step import make_sharded_train_steps
+
+        key = (bank.width, bank.height, self.raster_cfg)
+        if key not in self._sharded_cache:
+            self._sharded_cache[key] = make_sharded_train_steps(
+                self.mesh,
+                height=bank.height,
+                width=bank.width,
+                active_sh_degree=self.active_sh_degree,
+                opt_cfg=self.opt_cfg,
+                raster_cfg=self.raster_cfg,
+                spatial_lr_scale=self.spatial_lr_scale,
+            )
+        return self._sharded_cache[key]
+
+    def _mesh_window(self, bank, cams: list[int], bgs: torch.Tensor, w: int):
+        """w sharded steps on the views cams ([w*b], b per step, one per data
+        group) of one bank; returns the per-step metrics stacked to [w]
+        (gsjax/train/trainer.py:527-554)."""
+        b = len(cams) // w
+        dev = self.device
+        idxs = torch.as_tensor(cams, dtype=torch.long, device=dev)
+        gt = bank.gt_rgb[idxs].to(torch.float32) / 255.0
+        gt = torch.clamp(gt, 0.0, 1.0) * (bank.alpha[idxs].to(torch.float32) / 255.0)
+
+        def wb(x):  # [w*b, ...] -> [w, b, ...]
+            return x.reshape((w, b) + tuple(x.shape[1:]))
+
+        steps_fn = self._sharded_steps_for(bank)
+        self.state, m = steps_fn(
+            self.state,
+            wb(bank.views[idxs]),
+            wb(bank.full_projs[idxs]),
+            wb(bank.centers[idxs]),
+            wb(bank.tan_fovx[idxs]),
+            wb(bank.tan_fovy[idxs]),
+            wb(gt),
+            bgs.to(dev),
+            self.active_sh_degree,
+        )
+        return m
 
     def _window_backgrounds(self, w: int) -> torch.Tensor:
         if self.opt_cfg.random_background:
@@ -398,29 +458,44 @@ class Trainer:
                     self.active_sh_degree += 1
 
             end = min(self._next_boundary(iteration, events), iters)
-            bank_idx, cams = self._next_window(min(max_window, end - iteration))
-            w = len(cams)
+            if self.mesh is None:
+                bank_idx, cams = self._next_window(min(max_window, end - iteration))
+                w = len(cams)
+            else:
+                # Mesh path: each step takes a batch of b same-bank cameras
+                # (b = the mesh's "data" size; b = 1, w = 1 is the
+                # reference loop). w is rounded down to a power of two, as
+                # gsjax's compiled scan lengths are.
+                b = dim_size(self.mesh, "data")
+                w = min(max_window, end - iteration)
+                w = 1 << (w.bit_length() - 1)
+                bank_idx, cams = self._next_window(w * b)
+                if len(cams) < w * b:  # cycle-pad a short epoch tail
+                    cams = (cams * (-(-(w * b) // len(cams))))[: w * b]
             bank = self.banks[bank_idx]
             bgs = self._window_backgrounds(w)
 
             t0 = time.perf_counter()
-            # Power-of-two chunks, as gsjax dispatches its scans: the
-            # schedule is the same, whatever each chunk costs here.
-            parts = []
-            off = 0
-            for c in _pow2_chunks(w):
-                self.state, m = train_steps(
-                    self.state,
-                    bank,
-                    torch.as_tensor(cams[off:off + c], dtype=torch.int32),
-                    bgs[off:off + c],
-                    active_sh_degree=self.active_sh_degree,
-                    opt_cfg=opt,
-                    raster_cfg=self.raster_cfg,
-                    spatial_lr_scale=self.spatial_lr_scale,
-                )
-                parts.append(m)
-                off += c
+            if self.mesh is not None:
+                parts = [self._mesh_window(bank, cams, bgs, w)]
+            else:
+                # Power-of-two chunks, as gsjax dispatches its scans: the
+                # schedule is the same, whatever each chunk costs here.
+                parts = []
+                off = 0
+                for c in _pow2_chunks(w):
+                    self.state, m = train_steps(
+                        self.state,
+                        bank,
+                        torch.as_tensor(cams[off:off + c], dtype=torch.int32),
+                        bgs[off:off + c],
+                        active_sh_degree=self.active_sh_degree,
+                        opt_cfg=opt,
+                        raster_cfg=self.raster_cfg,
+                        spatial_lr_scale=self.spatial_lr_scale,
+                    )
+                    parts.append(m)
+                    off += c
             # The window's one host sync: its stacked metrics.
             metrics = {
                 k: torch.cat([getattr(p, k) for p in parts]).cpu().numpy()
@@ -437,9 +512,10 @@ class Trainer:
                     self.scene.model_path or ".",
                     f"snapshot_it{iteration + w}.npz",
                 )
-                save_checkpoint(
-                    path, self.state, self.active_sh_degree, self.spatial_lr_scale
-                )
+                if self.is_main:
+                    save_checkpoint(
+                        path, self.state, self.active_sh_degree, self.spatial_lr_scale
+                    )
                 raise FloatingPointError(
                     f"non-finite loss in window ending at {iteration + w}; "
                     f"state dumped to {path}"
@@ -480,12 +556,12 @@ class Trainer:
             # Held-out evaluation runs BEFORE densify/opacity-reset at the
             # same iteration (reference: training_report at train.py:105
             # precedes densification at :113-123).
-            if iteration in test_iterations:
+            if iteration in test_iterations and self.is_main:
                 self._report_test(
                     iteration, first_test=iteration == min(test_iterations)
                 )
                 done("test")
-            if iteration in save_iterations:
+            if iteration in save_iterations and self.is_main:
                 print(f"\n[ITER {iteration}] Saving Gaussians")
                 self.scene.save(
                     iteration, self.state.params, self.state.aux.alive
@@ -513,10 +589,10 @@ class Trainer:
             if 0 <= debug_from <= iteration:
                 torch.autograd.set_detect_anomaly(True)
 
-            if self.profile_dir is not None:
+            if self.profile_dir is not None and self.is_main:
                 self._profile_at(iteration)
 
-            if iteration in checkpoint_iterations:
+            if iteration in checkpoint_iterations and self.is_main:
                 print(f"\n[ITER {iteration}] Saving Checkpoint")
                 self._save_checkpoint(
                     os.path.join(self.scene.model_path, f"chkpnt{iteration}.npz")
@@ -620,7 +696,7 @@ class Trainer:
             for k in ("n_alive", "n_cloned", "n_split", "n_pruned", "n_dropped")}})
         if n_alive > 0.75 * cap or n_dropped > 0:
             new_cap = max(cap * 2, 1024)
-            print(
+            self._say(
                 f"\n[ITER {iteration}] growing capacity {cap} -> {new_cap} "
                 f"(alive={n_alive}, dropped={n_dropped})"
             )
@@ -785,7 +861,7 @@ class Trainer:
                         )
             l1 = float(np.mean(l1s))
             ps = float(np.mean(psnrs))
-            print(
+            self._say(
                 f"\n[ITER {iteration}] Evaluating {name}: L1 {l1:.6f} PSNR {ps:.3f}"
             )
             self.events.append({"eval": name, "iteration": iteration, "l1": l1,

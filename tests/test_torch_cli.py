@@ -120,8 +120,12 @@ def test_safe_state_seeds_every_rng(monkeypatch):
 
 
 def test_train_cli_refuses_what_is_not_ported(tmp_path):
-    for extra in (["--data_parallel", "2"], ["--tile_parallel", "2"], ["--orbax"]):
-        with pytest.raises(NotImplementedError):
+    """--orbax is not ported; a mesh asked for in one process (no torchrun)
+    is refused with a message naming torchrun."""
+    with pytest.raises(NotImplementedError):
+        train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), "--orbax"])
+    for extra in (["--data_parallel", "2"], ["--tile_parallel", "2"]):
+        with pytest.raises(RuntimeError, match="torchrun --nproc_per_node 2"):
             train_cli.main(["-s", str(tmp_path), "-m", str(tmp_path / "m"), *extra])
 
 

@@ -36,9 +36,16 @@ def test_tool_refuses_without_card(name, monkeypatch):
     assert "no CUDA device" in str(e.value.code) and name in str(e.value.code)
 
 
-def test_trace_step_sharded_names_the_mesh_item():
-    with pytest.raises(NotImplementedError, match="queue item 6"):
+def test_trace_step_sharded_names_the_mesh_item(monkeypatch):
+    """--sharded (the mesh step, ROADMAP queue item 6, now ported) traces
+    the sharded step's own functions, and refuses without a card."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(SystemExit, match="trace_step: no CUDA device"):
         trace_step.main(["--sharded"])
+    marked = {(m.__name__, attr) for m, attr, _ in trace_step.SHARDED_MARKS}
+    assert {("gsjax_torch.parallel.step", "halo_exchange"),
+            ("torch.distributed", "all_reduce")} <= marked
+    assert all(callable(getattr(m, attr)) for m, attr, _ in trace_step.SHARDED_MARKS)
 
 
 def test_bench_sweep_configs():
