@@ -91,8 +91,25 @@ Phases, one JSON line each (any failure exits non-zero):
            column's largest) and one sharded step after Adam against
            train_step; launches per sharded step; ms per step of the eager
            sharded step and of train_step in turns; the group's start-up
-           seconds; a Trainer on the mesh for 32 iterations on the scene
-           phase's Scene. After the profiled phases, before the trainer
+           seconds; the mesh window (case mesh_graph): 10 sharded steps
+           on the four main views twice as the eager loop and once as
+           replays of the captured sharded step, bitwise against the eager
+           loop where two eager windows agree bit for bit (else within 4x
+           their spread in lr units), ms per step, device busy ms and idle
+           share of each, launches (the capture's count times the
+           replays, checked by torch.profiler); a Trainer on the mesh for
+           64 iterations (two windows of 32, the first with the capture)
+           on the scene phase's Scene. After the profiled
+           phases, before the trainer
+  tools_rest the remaining tools, one line each: after the kernels
+           line's measurements bench_scan (the bench step dispatched and
+           as replays of its captured graph), probe_gradreduce and
+           scaling_projection (these read the profiler); after the mesh
+           phase probe_saturation, probe_tilesize (32x32 counts equal to
+           the origin view's), ckpt_to_ply (a bench-state checkpoint read
+           back), export_lpips_weights (random state dicts), bench_scaling
+           (one NCCL rank), sky_run and a quality run (cut iteration
+           counts, under "reduced") and diagnose_quality on its artifact
   trainer  `python -m gsjax_torch.cli.train` (through main) on a COLMAP
            dataset of the bench scene (as the scene phase writes it) with
            --eval, 300 iterations, the viewer listening on a free port:
@@ -1078,6 +1095,76 @@ def lr_units(steps, a, b, opt_cfg, spatial_lr_scale) -> dict:
             for k in PARAM_NAMES}
 
 
+def replays_against_eager(torch, steps, eager_a, eager_b, graphed, opt_cfg,
+                          where: str) -> dict:
+    """Two eager windows' (state, metrics) and the replayed window's: where
+    the eager windows agree bit for bit, the replays must equal them bit
+    for bit; where they do not, the largest difference per parameter in lr
+    units, the replays' at most GRAPH_LR_MULTIPLE times the eager pair's."""
+    eager_bitwise = states_equal(torch, steps, eager_a[0], eager_b[0], eager_a[1], eager_b[1])
+    graph_bitwise = states_equal(torch, steps, eager_a[0], graphed[0], eager_a[1], graphed[1])
+    out = {"eager_bitwise_reproducible": eager_bitwise,
+           "graph_equals_eager_bitwise": graph_bitwise}
+    if eager_bitwise and not graph_bitwise:
+        raise AssertionError(f"{where}: replays differ from the eager steps, which "
+                             "reproduce bit for bit")
+    if not eager_bitwise:
+        out["eager_vs_eager_lr_units"] = lr_units(steps, eager_a[0], eager_b[0], opt_cfg,
+                                                  SPATIAL_LR_SCALE)
+        out["graph_vs_eager_lr_units"] = lr_units(steps, eager_a[0], graphed[0], opt_cfg,
+                                                  SPATIAL_LR_SCALE)
+        over = {k: v for k, v in out["graph_vs_eager_lr_units"].items()
+                if not v <= GRAPH_LR_MULTIPLE * out["eager_vs_eager_lr_units"][k]}
+        if over:
+            raise AssertionError(f"{where}: replays differ from eager by more than "
+                                 f"{GRAPH_LR_MULTIPLE}x eager's own spread: {over}")
+    return out
+
+
+def window_timings(torch, forms, n_steps: int) -> dict:
+    """For each (name, window function, state) form: ms per step of one
+    window by CUDA events and by the host clock, and its device busy ms,
+    idle share and device ops per step (torch.profiler)."""
+    from gsjax_torch.tools.common import profile_table
+
+    out = {}
+    timer = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+    for name, fn, st in forms:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        timer[0].record()
+        fn(st)
+        timer[1].record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / n_steps
+        ms = timer[0].elapsed_time(timer[1]) / n_steps
+        prof = profile_table(lambda: fn(st), ms * n_steps)
+        out[name] = {"ms_per_step": ms, "host_ms_per_step": host_ms,
+                     "device_busy_ms_per_step": prof["device_busy_ms"] / n_steps,
+                     "idle_share": prof["idle_share"],
+                     "device_ops_per_step": prof["device_kernels"] / n_steps,
+                     "mpx_per_s": BENCH_W * BENCH_H / ms / 1e3}
+    return out
+
+
+def replay_launches_seen(torch, kernels, steps, window, n_steps: int, where: str) -> dict:
+    """The main kernels' launches per replay that torch.profiler sees over
+    one window of n_steps replays; they must equal the last capture's
+    count."""
+    from gsjax_torch.tools.common import _profiled
+
+    events = _profiled(window, 1, lambda ev: any(
+        DEVICE_KERNELS["composite_forward"] in e.name for e in ev))
+    if events is None:
+        raise AssertionError(f"{where}: the profiler saw no kernel of the replays")
+    seen = {k: round(sum(DEVICE_KERNELS[k] in e.name for e in events) / n_steps)
+            for k in kernels.KERNEL_NAMES}
+    if seen != steps.captures[-1]["launches"]:
+        raise AssertionError(f"{where}: the profiler counts {seen} launches per replay, "
+                             f"the capture {steps.captures[-1]['launches']}")
+    return seen
+
+
 def phase_graph(torch, kernels, state, bank, cfg):
     """The same GRAPH_STEPS steps on the bench scene eagerly (scan_steps, a
     Python loop of _step_core) and as one window of replays of the
@@ -1092,7 +1179,6 @@ def phase_graph(torch, kernels, state, bank, cfg):
     from the capture's count times the replays (the capture's two eager
     warm-up steps apart), cross-checked by torch.profiler."""
     from gsjax_torch.config import OptimizationConfig
-    from gsjax_torch.tools.common import _profiled, profile_table
     from gsjax_torch.train import step as steps
 
     kw = dict(active_sh_degree=3, opt_cfg=OptimizationConfig(), raster_cfg=cfg,
@@ -1120,31 +1206,16 @@ def phase_graph(torch, kernels, state, bank, cfg):
     missing = [k for k in kernels.KERNEL_NAMES if launches[k] == 0]
     if missing:
         raise AssertionError(f"graph: kernels not launched by the replays: {missing}")
-    eager_bitwise = states_equal(torch, steps, ea, eb, ma, mb)
-    graph_bitwise = states_equal(torch, steps, ea, gs, ma, mg)
     losses = [float(v) for v in mg.loss]
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"graph: non-finite loss {losses}")
     if int(mg.num_instances.max()) > cfg.max_instances or int(mg.num_rows.max()) > cfg.max_rows:
         raise AssertionError("graph: budget overflow")
     line = {"phase": "graph", "steps": GRAPH_STEPS, "views": bank.count,
-            "eager_bitwise_reproducible": eager_bitwise,
-            "graph_equals_eager_bitwise": graph_bitwise, "losses": losses,
-            "capture": steps.captures[-1], "launches_per_window": launches,
-            "warmup_launches": warmup}
-    if eager_bitwise and not graph_bitwise:
-        raise AssertionError("graph: replays differ from the eager steps, which "
-                             "reproduce bit for bit")
-    if not eager_bitwise:
-        line["eager_vs_eager_lr_units"] = lr_units(steps, ea, eb, kw["opt_cfg"],
-                                                   SPATIAL_LR_SCALE)
-        line["graph_vs_eager_lr_units"] = lr_units(steps, ea, gs, kw["opt_cfg"],
-                                                   SPATIAL_LR_SCALE)
-        over = {k: v for k, v in line["graph_vs_eager_lr_units"].items()
-                if not v <= GRAPH_LR_MULTIPLE * line["eager_vs_eager_lr_units"][k]}
-        if over:
-            raise AssertionError(f"graph: replays differ from eager by more than "
-                                 f"{GRAPH_LR_MULTIPLE}x eager's own spread: {over}")
+            **replays_against_eager(torch, steps, (ea, ma), (eb, mb), (gs, mg),
+                                    kw["opt_cfg"], "graph"),
+            "losses": losses, "capture": steps.captures[-1],
+            "launches_per_window": launches, "warmup_launches": warmup}
 
     # The host syncs of one eager window (torch's sync debug mode warns at
     # each synchronizing call): a sync per step would keep the host from
@@ -1160,32 +1231,10 @@ def phase_graph(torch, kernels, state, bank, cfg):
              if "synchroniz" in str(w.message)]
     line["eager_window_syncs"] = {at: syncs.count(at) for at in sorted(set(syncs))}
 
-    timer = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-    for name, fn, st in (("eager", eager, ea), ("graph", graphed, gs)):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        timer[0].record()
-        fn(st)
-        timer[1].record()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - t0) * 1e3 / GRAPH_STEPS
-        ms = timer[0].elapsed_time(timer[1]) / GRAPH_STEPS
-        prof = profile_table(lambda: fn(st), ms * GRAPH_STEPS)
-        line[name] = {"ms_per_step": ms, "host_ms_per_step": host_ms,
-                      "device_busy_ms_per_step": prof["device_busy_ms"] / GRAPH_STEPS,
-                      "idle_share": prof["idle_share"],
-                      "device_ops_per_step": prof["device_kernels"] / GRAPH_STEPS,
-                      "mpx_per_s": BENCH_W * BENCH_H / ms / 1e3}
-    events = _profiled(lambda: graphed(gs), 1, lambda ev: any(
-        DEVICE_KERNELS["composite_forward"] in e.name for e in ev))
-    if events is None:
-        raise AssertionError("graph: the profiler saw no kernel of the replays")
-    seen = {k: round(sum(DEVICE_KERNELS[k] in e.name for e in events) / GRAPH_STEPS)
-            for k in kernels.KERNEL_NAMES}
-    line["profiler_launches_per_replay"] = seen
-    if seen != steps.captures[-1]["launches"]:
-        raise AssertionError(f"graph: the profiler counts {seen} launches per replay, "
-                             f"the capture {steps.captures[-1]['launches']}")
+    line.update(window_timings(torch, (("eager", eager, ea), ("graph", graphed, gs)),
+                               GRAPH_STEPS))
+    line["profiler_launches_per_replay"] = replay_launches_seen(
+        torch, kernels, steps, lambda: graphed(gs), GRAPH_STEPS, "graph")
     steps.drop_step_graphs()
     emit(line)
     return line
@@ -1552,11 +1601,14 @@ def phase_scene(torch, kernels, render, params):
 # --- the device mesh (gsjax_torch.parallel) on one card -------------------------
 
 MESH_STEPS = 5
-MESH_TRAINER_ITERATIONS = 32
+# Two windows of 32: the first holds the capture, the second only replays.
+MESH_TRAINER_ITERATIONS = 64
 MESH_IMAGE_ATOL = 2e-5
 MESH_LOSS_RTOL = 1e-5
 MESH_GRAD_TOL = 5e-3
 MESH_SLAB_SPLITS = (2, 4)
+# The mesh window's steps, eagerly and as replays of the captured step.
+MESH_GRAPH_STEPS = 10
 
 
 def mesh_gradients(torch, params, aux, camera, gt, cfg):
@@ -1600,7 +1652,67 @@ def stitched_slabs(torch, params, aux, camera, cfg, n_tile):
     return image, counts, rows
 
 
-def phase_mesh(torch, kernels, render, params, aux, camera, gt_camera, scene, scene_cfg):
+def mesh_graph(torch, kernels, mesh, params, aux, bank, cfg) -> dict:
+    """The mesh window on the 1x1 NCCL mesh: MESH_GRAPH_STEPS sharded steps
+    on the bank's views in turn, twice as the eager loop and once as
+    replays of the captured sharded step (make_sharded_train_steps), from
+    copies of one state; the replays against the eager windows
+    (replays_against_eager); ms per step, device busy ms and idle share of
+    each; launches: the counts set to 0 just before the replayed window
+    and read just after (the capture's count times the replays; its two
+    eager warm-up steps apart), cross-checked by torch.profiler."""
+    from gsjax_torch.config import OptimizationConfig
+    from gsjax_torch.parallel.step import make_sharded_train_steps
+    from gsjax_torch.train import step as steps
+    from gsjax_torch.train.optimizer import adam_init
+
+    opt_cfg = OptimizationConfig()
+    window_steps = make_sharded_train_steps(
+        mesh, height=BENCH_H, width=BENCH_W, active_sh_degree=3, opt_cfg=opt_cfg,
+        raster_cfg=cfg, spatial_lr_scale=SPATIAL_LR_SCALE)
+    picks = [bank.pick(i % bank.count) for i in range(MESH_GRAPH_STEPS)]
+    window = tuple(torch.stack([get(cam, gt)[None] for cam, gt in picks]) for get in (
+        lambda c, g: c.view, lambda c, g: c.full_proj, lambda c, g: c.cam_center,
+        lambda c, g: c.tan_fovx, lambda c, g: c.tan_fovy, lambda c, g: g))
+    bgs = torch.zeros((MESH_GRAPH_STEPS, 3))
+    start = steps.TrainState(params=params, opt=adam_init(params), aux=aux,
+                             step=torch.ones((), dtype=torch.int32, device=params.device))
+
+    def eager(st):
+        return window_steps.loop(st, *window, bgs)
+
+    def graphed(st):
+        return window_steps(st, *window, bgs)
+
+    ea, ma = eager(steps.clone_state(start))
+    eb, mb = eager(steps.clone_state(start))
+    steps.drop_step_graphs()
+    steps.reset_graph_counts()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    gs, mg = graphed(steps.clone_state(start))
+    torch.cuda.synchronize()
+    launches = dict(steps.replayed_launch_counts)
+    warmup = {k: n - launches[k] for k, n in steps.executed_launches().items()}
+    missing = [k for k in kernels.KERNEL_NAMES if launches[k] == 0]
+    losses = [float(v) for v in mg.loss]
+    if missing or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"mesh_graph: kernels not launched {missing}, losses {losses}")
+    out = {"steps": MESH_GRAPH_STEPS, "views": bank.count,
+           **replays_against_eager(torch, steps, (ea, ma), (eb, mb), (gs, mg), opt_cfg,
+                                   "mesh_graph"),
+           "losses": losses, "capture": steps.captures[-1],
+           "launches_per_window": launches, "warmup_launches": warmup}
+    out.update(window_timings(torch, (("eager", eager, ea), ("graph", graphed, gs)),
+                              MESH_GRAPH_STEPS))
+    out["profiler_launches_per_replay"] = replay_launches_seen(
+        torch, kernels, steps, lambda: graphed(gs), MESH_GRAPH_STEPS, "mesh_graph")
+    steps.drop_step_graphs()
+    return out
+
+
+def phase_mesh(torch, kernels, render, params, aux, camera, gt_camera, bank, scene,
+               scene_cfg):
     """The mesh path (gsjax_torch.parallel) on this one card: a world-size-1
     NCCL group started in this process (127.0.0.1, a free port) and a 1x1
     ("data", "tile") DeviceMesh; the bench scene at full width (500k
@@ -1613,8 +1725,9 @@ def phase_mesh(torch, kernels, render, params, aux, camera, gt_camera, scene, sc
     their plain versions; sharded_grads against the eager step's gradients
     (loss rtol 1e-5, gradients 5e-3 of each column's largest); one sharded
     step's parameters after Adam against train_step's (fewer than 0.5 % of
-    elements beyond 5e-5 + 1e-3 |b|); a Trainer on the mesh for 32
-    iterations on the scene phase's Scene, its loss finite. Timings: the
+    elements beyond 5e-5 + 1e-3 |b|); a Trainer on the mesh for 64
+    iterations on the scene phase's Scene (two windows of 32: the first
+    captures), its loss finite. Timings: the
     group's start-up seconds (rendezvous and the first all_reduce), ms per
     step of the eager sharded step and of train_step in turns, launches of
     the five kernels per sharded step (counts set to 0 just before
@@ -1629,6 +1742,7 @@ def phase_mesh(torch, kernels, render, params, aux, camera, gt_camera, scene, sc
     from gsjax_torch.parallel.multihost import init_local_group
     from gsjax_torch.parallel.step import make_sharded_train_step
     from gsjax_torch.tools import bench_mesh_overhead
+    from gsjax_torch.train import step as steps
     from gsjax_torch.train.optimizer import adam_init
     from gsjax_torch.train.step import TrainState, clone_state, train_step
     from gsjax_torch.train.trainer import Trainer
@@ -1759,17 +1873,23 @@ def phase_mesh(torch, kernels, render, params, aux, camera, gt_camera, scene, sc
         # ms per step: the eager sharded step and train_step, in turns.
         line["overhead"] = bench_mesh_overhead.run(params, aux, camera, cfg, mesh)
 
+        # The window as replays of the captured sharded step (mesh_graph).
+        graph_line = mesh_graph(torch, kernels, mesh, params, aux, bank, cfg)
+        emit({"phase": "mesh", "case": "mesh_graph", **graph_line})
+
         # A Trainer on the mesh, on the scene phase's Scene.
         cams = [scene.get_train_banks()[0].pick(i)[0] for i in range(4)]
         tcfg, peaks = sized_config(torch, render, scene.params, scene.aux, cams, 3)
         trainer = Trainer(scene, scene_cfg, OptimizationConfig(
             iterations=MESH_TRAINER_ITERATIONS), raster_cfg=tcfg, quiet=True, mesh=mesh)
         trainer.active_sh_degree = 3
+        steps.reset_graph_counts()
         t0 = time.perf_counter()
         trainer.train(test_iterations=(), save_iterations=(), checkpoint_iterations=())
         torch.cuda.synchronize()
         windows = [e for e in trainer.events if "window" in e]
         line["trainer"] = {"iterations": int(trainer.state.step), "windows": windows,
+                           "captures": list(steps.captures),
                            "budgets": [tcfg.max_instances, tcfg.max_rows], "peaks": peaks,
                            "seconds": time.perf_counter() - t0,
                            "ms_per_step": sum(e["ms"] for e in windows)
@@ -1781,7 +1901,7 @@ def phase_mesh(torch, kernels, render, params, aux, camera, gt_camera, scene, sc
         dist.destroy_process_group()
     line["phase_seconds"] = time.perf_counter() - t_phase
     emit(line)
-    return per_step, slab_errs
+    return per_step, slab_errs, graph_line["launches_per_window"]
 
 
 # --- the viewer, LPIPS and the remaining profilers (queue item 7) -----------------
@@ -2103,6 +2223,233 @@ def bench_trained_line(torch, model):
               sh_degree=sh, seconds=time.perf_counter() - t0, **out))
 
 
+# --- the remaining tools: one line each ----------------------------------------
+
+# bench_scan's form: windows of SCAN_WINDOW steps, SCAN_OUTER of them timed.
+SCAN_WINDOW = 10
+SCAN_OUTER = 2
+# sky_run and the quality run cut to keep the phase short; the tools'
+# defaults are 4000 and 2000 iterations.
+SKY_ITERATIONS = 600
+QUALITY_ITERATIONS = 300
+# bench_scaling's one-rank run: its own defaults (640x360, 50k Gaussians).
+SCALING_ITERS = 5
+
+
+def quietly(fn):
+    """fn()'s result and what it printed."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn()
+    return out, buf.getvalue()
+
+
+def phase_tools_rest_profiled(torch, params, aux, camera, cfg, stage_rows):
+    """The remaining tools that read torch.profiler, on the bench scene
+    before any long run of replays: bench_scan (the bench step dispatched
+    and as replays of its captured graph), probe_gradreduce (the grad
+    reduction's pieces on the origin view's binning; row_gather's regroup
+    equal to index_select's bit for bit) and scaling_projection (the stage
+    table of the stages phase, the N-rate binning and Adam measured now,
+    exact slab pair counts at 2, 4 and 8 slabs). One `tools_rest` line
+    each."""
+    from gsjax_torch.config import RasterConfig
+    from gsjax_torch.render.api import depth_sorted_bins
+    from gsjax_torch.render.preprocess import preprocess
+    from gsjax_torch.tools import bench_scan, probe_gradreduce, scaling_projection
+
+    t0 = time.perf_counter()
+    scan = bench_scan.run(params, aux, camera, cfg, SCAN_WINDOW, SCAN_OUTER)
+    if not all(math.isfinite(scan[f]["ms_per_step"]) for f in ("dispatched", "scanned")):
+        raise AssertionError(f"bench_scan: {scan}")
+    emit(dict(phase="tools_rest", seconds=time.perf_counter() - t0, **scan))
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        proj = preprocess(
+            xyz=params.xyz, sh=params.get_features(), opacity=params.get_opacity(),
+            scaling=params.get_scaling(), rotation=params.rotation, camera=camera,
+            active_sh_degree=3, alive=aux.alive)
+        _, binning = depth_sorted_bins(proj, camera, cfg)
+    gen = torch.Generator(device=params.device).manual_seed(0)
+    rows = probe_gradreduce.run(binning, gen)
+    grads = torch.randn((binning.sorted_slot.shape[0], 16), generator=gen,
+                        device=params.device)
+    with torch.no_grad():
+        out = {k: fn() for k, fn in probe_gradreduce.pieces(
+            grads, binning.sorted_slot, binning.gm_start).items()}
+    regroup_equal = torch.equal(out["c. regroup (P,16) index_select"],
+                                out["c. regroup (P,16) row_gather kernel"])
+    if not regroup_equal or not all(math.isfinite(r["ms"]) for r in rows if "ms" in r):
+        raise AssertionError(f"probe_gradreduce: regroups equal {regroup_equal}, {rows}")
+    for row in rows:
+        emit(dict(phase="tools_rest", **row))
+    emit({"phase": "tools_rest", "tool": "probe_gradreduce",
+          "regroups_equal_bitwise": regroup_equal, "seconds": time.perf_counter() - t0})
+    del out, grads
+
+    t0 = time.perf_counter()
+    count_cfg = RasterConfig(tile_w=cfg.tw, tile_h=cfg.th, max_instances=128,
+                             max_rows=1 << 20)
+    slabs = scaling_projection.slab_pair_counts(proj, BENCH_W, BENCH_H, count_cfg)
+    stage_ms = scaling_projection.measure_stages(params, aux, camera, cfg, stage_rows)
+    t11, projection = scaling_projection.project(
+        stage_ms, slabs, params.capacity, BENCH_W * BENCH_H,
+        scaling_projection.NVLINK_GBPS_EACH_WAY)
+    if sum(slabs[2]) < int(binning.num_instances):
+        raise AssertionError(f"scaling_projection: slabs {slabs} against the view's "
+                             f"{int(binning.num_instances)} pairs")
+    emit({"phase": "tools_rest", "tool": "scaling_projection", "stage_ms": stage_ms,
+          "single_card_step_ms": t11, "slab_pair_counts": slabs,
+          "view_pairs": int(binning.num_instances),
+          "link_gbps_each_way": scaling_projection.NVLINK_GBPS_EACH_WAY,
+          "link_rate_source": "H100 SXM data sheet, not measured",
+          "projection": projection, "seconds": time.perf_counter() - t0})
+
+
+def phase_tools_rest(torch, params, aux, camera, view_counts):
+    """The remaining tools that read no profiler, after the mesh phase:
+    probe_saturation, probe_tilesize (its 32x32 pairs and rows equal to
+    the origin view's binning counts), ckpt_to_ply (an npz checkpoint of
+    the bench state to PLY, read back), export_lpips_weights (seeded random
+    state dicts in torchvision's and LPIPS's layouts), bench_scaling (a
+    world of one NCCL rank), sky_run (cut to SKY_ITERATIONS), the quality
+    run on sky_run's scene (cut to QUALITY_ITERATIONS) and
+    diagnose_quality on its artifact. One `tools_rest` line each."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from gsjax_torch.image_metrics import expected_lpips_members
+    from gsjax_torch.render.preprocess import preprocess
+    from gsjax_torch.scene import load_ply_model
+    from gsjax_torch.tools import (
+        bench_scaling, ckpt_to_ply, diagnose_quality, export_lpips_weights,
+        probe_saturation, probe_tilesize, quality_run, sky_run,
+    )
+    from gsjax_torch.train.checkpoint import save_checkpoint
+    from gsjax_torch.train.optimizer import adam_init
+    from gsjax_torch.train.step import TrainState
+
+    t0 = time.perf_counter()
+    t = probe_saturation.t_map(params, aux, camera).cpu().numpy()
+    if t.shape != (BENCH_H, BENCH_W) or not (0.0 <= t.min() and t.max() <= 1.0):
+        raise AssertionError(f"probe_saturation: T map {t.shape}, [{t.min()}, {t.max()}]")
+    emit({"phase": "tools_rest", "tool": "probe_saturation",
+          "tile": f"{probe_saturation.CFG.tw}x{probe_saturation.CFG.th}",
+          **probe_saturation.summarize(t, probe_saturation.CFG.tw, probe_saturation.CFG.th),
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        proj = preprocess(
+            xyz=params.xyz, sh=params.get_features(), opacity=params.get_opacity(),
+            scaling=params.get_scaling(), rotation=params.rotation, camera=camera,
+            active_sh_degree=3, alive=aux.alive)
+    rows = probe_tilesize.run(proj, BENCH_W, BENCH_H)
+    del proj
+    at32 = next(r for r in rows if r["tile"] == "32x32")
+    if [at32["pairs"], at32["rows"]] != view_counts:
+        raise AssertionError(f"probe_tilesize: 32x32 counts {at32} against the view's "
+                             f"{view_counts}")
+    for row in rows:
+        emit(dict(phase="tools_rest", **row))
+    emit({"phase": "tools_rest", "tool": "probe_tilesize", "view_counts": view_counts,
+          "seconds": time.perf_counter() - t0})
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as root:
+        t0 = time.perf_counter()
+        ckpt = os.path.join(root, "chkpnt1.npz")
+        state = TrainState(params=params, opt=adam_init(params), aux=aux,
+                           step=torch.ones((), dtype=torch.int32, device=params.device))
+        save_checkpoint(ckpt, state, 3, SPATIAL_LR_SCALE)
+        del state
+        ply, text = quietly(lambda: ckpt_to_ply.main([ckpt, os.path.join(root, "ply")]))
+        back, back_aux = load_ply_model(ply, device=params.device)
+        n_ply, n_alive = int(back_aux.n_alive()), int(aux.n_alive())
+        same_xyz = torch.equal(back.xyz[:n_ply], params.xyz[aux.alive])
+        if n_ply != n_alive or not same_xyz:
+            raise AssertionError(f"ckpt_to_ply: {n_ply} Gaussians read back of {n_alive}, "
+                                 f"xyz equal {same_xyz}")
+        emit({"phase": "tools_rest", "tool": "ckpt_to_ply", "gaussians": n_ply,
+              "xyz_equal": same_xyz, "ply_bytes": os.path.getsize(ply),
+              "printed": text.strip(), "seconds": time.perf_counter() - t0})
+        del back, back_aux
+
+        t0 = time.perf_counter()
+        shapes = expected_lpips_members()
+        gen = torch.Generator().manual_seed(LPIPS_SEED)
+        vgg = {}
+        for i, idx in enumerate(export_lpips_weights.VGG16_CONV_INDICES):
+            vgg[f"features.{idx}.weight"] = torch.randn(shapes[f"conv{i}.w"], generator=gen)
+            vgg[f"features.{idx}.bias"] = torch.randn(shapes[f"conv{i}.b"], generator=gen)
+        lin = {f"lin{i}.model.1.weight": torch.randn(shapes[f"lin{i}.w"], generator=gen)
+               for i in range(export_lpips_weights.N_LIN)}
+        torch.save(vgg, os.path.join(root, "vgg16.pth"))
+        torch.save(lin, os.path.join(root, "vgg.pth"))
+        npz, text = quietly(lambda: export_lpips_weights.main([
+            "--vgg", os.path.join(root, "vgg16.pth"), "--lin", os.path.join(root, "vgg.pth"),
+            "--out", os.path.join(root, "lpips_vgg.npz")]))
+        with np.load(npz) as z:
+            equal = all(np.array_equal(z[f"conv{i}.w"], vgg[f"features.{idx}.weight"].numpy())
+                        for i, idx in enumerate(export_lpips_weights.VGG16_CONV_INDICES))
+        if not equal:
+            raise AssertionError("export_lpips_weights: conv weights differ")
+        emit({"phase": "tools_rest", "tool": "export_lpips_weights", "inputs": "random",
+              "members": len(shapes), "printed": text.strip(),
+              "seconds": time.perf_counter() - t0})
+        del vgg, lin
+
+        t0 = time.perf_counter()
+        scaling, _ = quietly(lambda: bench_scaling.main([
+            "--tiles", "1", "--iters", str(SCALING_ITERS)]))
+        if not scaling["results"] or not scaling["results"][0]["ms_per_step"] > 0:
+            raise AssertionError(f"bench_scaling: {scaling}")
+        emit(dict(phase="tools_rest", seconds=time.perf_counter() - t0, **scaling))
+
+        t0 = time.perf_counter()
+        sky_root = os.path.join(root, "sky")
+        with without_tensorboard():
+            sky, _ = quietly(lambda: sky_run.main(["--iterations", str(SKY_ITERATIONS),
+                                                   "--root", sky_root]))
+        runs = {tag: {k: v for k, v in sky[tag].items() if k != "per_view_psnr"}
+                for tag in ("sky_on", "sky_off")}
+        if not (sky["shell_survived_prune"] and math.isfinite(sky["delta_test_psnr"])
+                and runs["sky_on"]["shell_at_init"]["n_far_shell"] > 0):
+            raise AssertionError(f"sky_run: {sky}")
+        emit({"phase": "tools_rest", "tool": "sky_run",
+              "reduced": {"iterations": [SKY_ITERATIONS, 4000]},
+              "scene_seconds": sky["scene_seconds"], "delta_test_psnr": sky["delta_test_psnr"],
+              "shell_survived_prune": sky["shell_survived_prune"], **runs,
+              "seconds": time.perf_counter() - t0})
+
+        t0 = time.perf_counter()
+        artifact = os.path.join(root, "quality_run.json")
+        with without_tensorboard():
+            _, text = quietly(lambda: quality_run.main([
+                "--root", sky_root, "--out", artifact,
+                "--iterations", str(QUALITY_ITERATIONS),
+                "--test_iterations", str(QUALITY_ITERATIONS // 2),
+                str(QUALITY_ITERATIONS)]))
+        with open(artifact) as f:
+            art = json.load(f)
+        _, diagnosis = quietly(lambda: diagnose_quality.main(artifact))
+        lines = diagnosis.splitlines()
+        if art["crashed"] or len(art["test_psnr_curve"]) != 2 or len(lines) < 10:
+            raise AssertionError(f"quality_run / diagnose_quality: {art}, {diagnosis}")
+        emit({"phase": "tools_rest", "tool": "diagnose_quality",
+              "quality_run": json.loads(text.strip().splitlines()[-1]),
+              "reduced": {"iterations": [QUALITY_ITERATIONS, 2000],
+                          "scene": "sky_run's (300 px, 48 + 8 views)"},
+              "artifact_keys": sorted(art), "diagnosis": lines,
+              "seconds": time.perf_counter() - t0})
+
+
 def checkpoints_equal(a: str, b: str) -> bool:
     """Every array of two npz checkpoints bit for bit (the host state's
     pickles included)."""
@@ -2356,6 +2703,8 @@ def main() -> int:
 
     # --- the training step at full width -----------------------------------
     gt = results[("origin", False)].image
+    origin_counts = [int(results[("origin", False)].num_instances),
+                     int(results[("origin", False)].num_rows)]
     bank = view_bank(torch, views.values(), [results[(v, False)].image for v in views])
     del results
     tool_kernels.reset_launch_counts()
@@ -2363,7 +2712,6 @@ def main() -> int:
         torch, kernels, random_scene, views["origin"], gt, dev)
     # --- a window of steps as replays of the captured step ---------------------
     graph_line = phase_graph(torch, kernels, state, bank, cfgs[False])
-    del bank
     main_launches["step"] = dict(tool_kernels.launch_counts)
     if any(main_launches["views"].values()) or any(main_launches["step"].values()):
         raise AssertionError(f"a tools kernel ran on the main path: {main_launches}")
@@ -2503,17 +2851,26 @@ def main() -> int:
     if not all(math.isfinite(e["ms"]) for e in entries):
         raise AssertionError("kernel timing failed")
 
+    # --- the remaining tools that profile: bench_scan, probe_gradreduce,
+    # scaling_projection (after the kernels line's measurements) -------------
+    phase_tools_rest_profiled(torch, params, aux, views["origin"], cfgs[False],
+                              stages["stages"])
+
     # --- the device mesh on this card: a 1x1 mesh over NCCL --------------------
     # After the profiled measurements (it times by CUDA events and the host
     # clock only), before the trainer phase.
-    mesh_launches, mesh_errs = phase_mesh(
+    mesh_launches, mesh_errs, mesh_graph_launches = phase_mesh(
         torch, kernels, render, params, aux, views["origin"], views["orbit+0.15"],
-        scene, scene_cfg)
-    del scene
+        bank, scene, scene_cfg)
+    del scene, bank
     for e in entries:
         if e["name"] in mesh_launches:
             e["mesh_launches_per_step"] = mesh_launches[e["name"]]
             e["mesh_slab_max_abs_err"] = mesh_errs[e["name"]]
+            e["mesh_graph_window_launches"] = mesh_graph_launches[e["name"]]
+
+    # --- the remaining tools that read no profiler -----------------------------
+    phase_tools_rest(torch, params, aux, views["origin"], origin_counts)
 
     # --- the training CLI, render and metrics on a dataset on disk ------------
     # Last of the measurements: after its run torch.profiler sessions in this

@@ -22,6 +22,10 @@ halo exchange is an autograd.Function whose backward sends each halo's
 cotangent back to the rank that produced those rows (the transpose of
 gsjax's ppermute).
 
+The window (make_sharded_train_steps) replays one captured CUDA graph of
+the step on a CUDA mesh, the collectives inside it; on a CPU mesh it is a
+Python loop of the step.
+
 Two-stage backward: the local objective is differentiated with respect
 to the raster fields (mean_pix 2, conic 3, rgb 3, opacity 1: 9 floats per
 Gaussian), those are summed over "tile" as one [N, 9] tensor, and the sum
@@ -44,7 +48,14 @@ from gsjax_torch.parallel.render import composite_slab, slab_rows
 from gsjax_torch.render.preprocess import preprocess
 from gsjax_torch.train.loss import ssim_map
 from gsjax_torch.train.optimizer import adam_update, make_lr_tree
-from gsjax_torch.train.step import StepMetrics, TrainState, stack_metrics
+from gsjax_torch.train.step import (
+    CapturedStep,
+    StepMetrics,
+    TrainState,
+    register_graph,
+    stack_metrics,
+    state_tensors,
+)
 
 HALO = 5  # 11x11 SSIM window: window_size // 2 rows each side
 
@@ -265,20 +276,26 @@ def make_sharded_train_steps(
     raster_cfg: RasterConfig,
     spatial_lr_scale: float,
 ):
-    """A window of sharded steps (the mesh-path twin of
-    train.step.scan_steps): a Python loop of `one_step`, where gsjax runs
-    one lax.scan.
+    """A window of sharded steps: the mesh-path twin of
+    train.step.train_steps, where gsjax runs one lax.scan.
 
     Returns steps(state, views [W,B,4,4], projs, centers, tanx, tany,
     gt [W,B,3,H,W], bgs [W,3], sh_degree=None) -> (state, metrics stacked
-    to [W]), with B = the mesh's "data" size.
+    to [W]), with B = the mesh's "data" size. On a CUDA mesh the window
+    replays one captured CUDA graph of `one_step` W times
+    (ShardedStepGraph; the state's tensors are updated in place, and the
+    returned state holds them). On a CPU mesh it is a Python loop of
+    `one_step`: gloo collectives cannot be captured. Under
+    torch.autograd.set_detect_anomaly, which a graph cannot capture, the
+    CUDA mesh runs the loop too.
     """
     one_step = make_sharded_train_step(
         mesh, height=height, width=width, active_sh_degree=active_sh_degree,
         opt_cfg=opt_cfg, raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale,
     ).one_step
 
-    def steps(state, views, projs, centers, tanx, tany, gt, bgs, sh_degree=None):
+    def loop(state, views, projs, centers, tanx, tany, gt, bgs, sh_degree=None):
+        bgs = bgs.to(state.params.device)
         metrics = []
         for k in range(views.shape[0]):
             state, m = one_step(state, views[k], projs[k], centers[k], tanx[k],
@@ -286,4 +303,66 @@ def make_sharded_train_steps(
             metrics.append(m)
         return state, stack_metrics(metrics)
 
+    def steps(state, views, projs, centers, tanx, tany, gt, bgs, sh_degree=None):
+        if mesh.device_type != "cuda" or torch.is_anomaly_enabled():
+            return loop(state, views, projs, centers, tanx, tany, gt, bgs, sh_degree)
+        sh = active_sh_degree if sh_degree is None else int(sh_degree)
+        inputs = (views, projs, centers, tanx, tany, gt, bgs)
+        key = (id(one_step), width, height, state.params.capacity, sh, views.shape[1],
+               raster_cfg, opt_cfg, spatial_lr_scale,
+               tuple(t.data_ptr() for t in state_tensors(state)))
+        graph = register_graph(key, state, lambda: ShardedStepGraph(
+            one_step, state, inputs, sh, dict(
+                mesh=list(mesh.mesh.shape), width=width, height=height,
+                capacity=state.params.capacity, active_sh_degree=sh,
+                budgets=[raster_cfg.max_instances, raster_cfg.max_rows])))
+        return graph.run(*inputs)
+
+    steps.loop = loop
     return steps
+
+
+class ShardedStepGraph(CapturedStep):
+    """The sharded step (`one_step`) captured once on a CUDA (NCCL) mesh,
+    bound to one state: the twin of train.step.StepGraph.
+
+    Each replay reads one step's inputs from the graph's own buffers
+    (views, projections, centres, tangents [B, ...], gt [B,3,H,W],
+    background [3]) and runs the step with its collectives (the halo's
+    send/receive, the [N,9] all_reduce over "tile", the flat all_reduce
+    over "data", the radii, loss and counts); a window copies each step's
+    inputs into those buffers (on the card, in stream order) before its
+    replay. The collectives are captured on the capture stream: NCCL
+    records them into the graph, and the eager warm-up steps before the
+    capture have started every communicator the step uses. Every rank
+    captures and replays in the same order, as it calls the eager step.
+    """
+
+    def __init__(self, one_step, state: TrainState, inputs, sh_degree: int,
+                 record: dict):
+        dev = state.params.device
+        self.one_step, self.sh_degree = one_step, sh_degree
+        # The warm-up steps read the window's first step.
+        self.inputs = [x[0].to(dev, torch.float32, copy=True) for x in inputs]
+        self._capture(state, record)
+
+    def _step(self, state: TrainState) -> tuple[TrainState, StepMetrics]:
+        return self.one_step(state, *self.inputs, self.sh_degree)
+
+    def run(self, views, projs, centers, tanx, tany, gt, bgs):
+        """Replay the step once per step of the window ([W, ...] inputs)."""
+        w = views.shape[0]
+        self.check_window(w)
+        dev = self.cursor.device
+        # A host-side background goes up in one copy from pinned memory,
+        # without blocking (a pageable copy would wait for the card).
+        if bgs.device.type == "cpu":
+            bgs = torch.as_tensor(bgs, dtype=torch.float32).contiguous().pin_memory()
+        window = [x.to(dev, non_blocking=True)
+                  for x in (views, projs, centers, tanx, tany, gt, bgs)]
+
+        def feed(k):
+            for buf, x in zip(self.inputs, window):
+                buf.copy_(x[k], non_blocking=True)
+
+        return self._replay(w, feed)

@@ -271,6 +271,58 @@ def _bound_ptrs(state: TrainState, bank) -> tuple[int, ...]:
     return tuple(t.data_ptr() for t in (*state_tensors(state), *bank_tensors))
 
 
+def capture_step(body, state: TrainState, record: dict):
+    """Capture body(state) once as a torch.cuda.CUDAGraph, torch's
+    whole-network recipe: WARMUP_STEPS eager runs of body on a copy of the
+    state on a side stream first, then the capture, which runs nothing.
+    Appends `record` with the warm-up and capture ms, the bytes the
+    graph's memory pool took and the launches it recorded to `captures`.
+    Returns (graph, {kernel: launches per replay}). A capture error
+    propagates."""
+    dev = state.params.device
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream(device=dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        scratch = clone_state(state)
+        for _ in range(WARMUP_STEPS):
+            body(scratch)
+        del scratch
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize(dev)
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    before = dict(kernels.launch_counts)
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body(state)
+    torch.cuda.synchronize(dev)
+    capture_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: kernels.launch_counts[k] - before[k] for k in kernels.KERNEL_NAMES}
+    captures.append({
+        **record, "warmup_ms": warmup_ms, "capture_ms": capture_ms,
+        "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
+        "launches": dict(launches),
+    })
+    return graph, launches
+
+
+def register_graph(key: tuple, state: TrainState, make):
+    """The captured step under `key`, whose last element starts with the
+    addresses of the state's tensors; made by make() on first use.
+    Capturing for a new state drops the graphs bound to another one."""
+    graph = _GRAPHS.get(key)
+    if graph is None:
+        state_ptrs = tuple(t.data_ptr() for t in state_tensors(state))
+        for k in [k for k in _GRAPHS if k[-1][:len(state_ptrs)] != state_ptrs]:
+            del _GRAPHS[k]
+        graph = _GRAPHS[key] = make()
+    return graph
+
+
 def step_graph(
     state: TrainState,
     bank,
@@ -287,90 +339,90 @@ def step_graph(
     new state drops the graphs bound to another one."""
     key = (bank.width, bank.height, state.params.capacity, active_sh_degree,
            raster_cfg, opt_cfg, spatial_lr_scale, _bound_ptrs(state, bank))
-    graph = _GRAPHS.get(key)
-    if graph is None:
-        state_ptrs = key[-1][:len(state_tensors(state))]
-        for k in [k for k in _GRAPHS if k[-1][:len(state_ptrs)] != state_ptrs]:
-            del _GRAPHS[k]
-        graph = StepGraph(
-            state, bank, active_sh_degree=active_sh_degree, opt_cfg=opt_cfg,
-            raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale,
-        )
-        _GRAPHS[key] = graph
-    return graph
+    return register_graph(key, state, lambda: StepGraph(
+        state, bank, active_sh_degree=active_sh_degree, opt_cfg=opt_cfg,
+        raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale))
 
 
-class StepGraph:
-    """`_step_core` captured once as a torch.cuda.CUDAGraph, bound to one
-    state and one bank.
+class CapturedStep:
+    """A training step captured once as a torch.cuda.CUDAGraph, bound to
+    one state (the base of StepGraph and the mesh's ShardedStepGraph).
 
-    The graph reads view index and background number `cursor` of the
-    window's buffers, runs the step (the parameters and moments are updated
-    in place by Adam; the new aux, step and Adam count are copied back into
-    the state's tensors), writes the step's four metrics into row `cursor`
-    of [GRAPH_WINDOW] buffers and adds one to the cursor, all on the
-    device. A capture or replay error propagates.
+    The graph runs `_step(state)`, which reads the subclass's bound inputs,
+    copies the new state into the state's tensors (the parameters and
+    moments are updated in place by Adam; the new aux, step and Adam count
+    are copied back), writes the step's four metrics into row `cursor` of
+    [GRAPH_WINDOW] buffers and adds one to the cursor, all on the device.
+    A capture or replay error propagates.
     """
+
+    def _capture(self, state: TrainState, record: dict) -> None:
+        dev = state.params.device
+        self.state = state
+        self.cursor = torch.zeros((), dtype=torch.int64, device=dev)
+        self.out = {k: torch.zeros(GRAPH_WINDOW, dtype=d, device=dev)
+                    for k, d in METRIC_DTYPES.items()}
+        self.graph, self.launches = capture_step(self._body, state, record)
+
+    def _step(self, state: TrainState) -> tuple[TrainState, StepMetrics]:
+        raise NotImplementedError
+
+    def _body(self, state: TrainState) -> None:
+        new, m = self._step(state)
+        with torch.no_grad():
+            copy_state_(state, new)
+            at = self.cursor.view(1)
+            for k, buf in self.out.items():
+                buf.index_copy_(0, at, getattr(m, k).reshape(1))
+            self.cursor.add_(1)
+
+    @staticmethod
+    def check_window(w: int) -> None:
+        if w > GRAPH_WINDOW:
+            raise ValueError(f"a window of {w} steps is longer than the "
+                             f"captured step's buffers ({GRAPH_WINDOW})")
+
+    def _replay(self, w: int, feed=None) -> tuple[TrainState, StepMetrics]:
+        """w replays, feed(k) issuing step k's input copies before its
+        replay (in stream order); metrics [W] on the card (copies: the next
+        window reuses the buffers)."""
+        self.cursor.zero_()
+        for k in range(w):
+            if feed is not None:
+                feed(k)
+            self.graph.replay()
+        for name, n in self.launches.items():
+            replayed_launch_counts[name] += n * w
+        return self.state, StepMetrics(**{k: v[:w].clone() for k, v in self.out.items()})
+
+
+class StepGraph(CapturedStep):
+    """`_step_core` captured once, bound to one state and one bank: each
+    replay reads view index and background number `cursor` of the
+    window's buffers."""
 
     def __init__(self, state: TrainState, bank, *, active_sh_degree: int,
                  opt_cfg: OptimizationConfig, raster_cfg: RasterConfig,
                  spatial_lr_scale: float):
         dev = state.params.device
-        self.state, self.bank = state, bank
+        self.bank = bank
         self.step_kw = dict(active_sh_degree=active_sh_degree, opt_cfg=opt_cfg,
                             raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale)
         self.cam_buf = torch.zeros(GRAPH_WINDOW, dtype=torch.int32, device=dev)
         self.bg_buf = torch.zeros((GRAPH_WINDOW, 3), dtype=torch.float32, device=dev)
-        self.cursor = torch.zeros((), dtype=torch.int64, device=dev)
-        self.out = {k: torch.zeros(GRAPH_WINDOW, dtype=d, device=dev)
-                    for k, d in METRIC_DTYPES.items()}
+        self._capture(state, dict(
+            width=bank.width, height=bank.height, capacity=state.params.capacity,
+            active_sh_degree=active_sh_degree,
+            budgets=[raster_cfg.max_instances, raster_cfg.max_rows]))
 
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            scratch = clone_state(state)
-            for _ in range(WARMUP_STEPS):
-                self._body(scratch)
-            del scratch
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        warmup_ms = (time.perf_counter() - t0) * 1e3
-
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        before = dict(kernels.launch_counts)
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._body(state)
-        torch.cuda.synchronize(dev)
-        capture_ms = (time.perf_counter() - t0) * 1e3
-        self.launches = {k: kernels.launch_counts[k] - before[k]
-                         for k in kernels.KERNEL_NAMES}
-        captures.append({
-            "width": bank.width, "height": bank.height,
-            "capacity": state.params.capacity, "active_sh_degree": active_sh_degree,
-            "budgets": [raster_cfg.max_instances, raster_cfg.max_rows],
-            "warmup_ms": warmup_ms, "capture_ms": capture_ms,
-            "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
-            "launches": dict(self.launches),
-        })
-
-    def _body(self, state: TrainState) -> None:
+    def _step(self, state: TrainState) -> tuple[TrainState, StepMetrics]:
         at = self.cursor.view(1)
         cam_idx = self.cam_buf.index_select(0, at).squeeze(0)
         bg = self.bg_buf.index_select(0, at).squeeze(0)
-        new, m = _step_core(state, self.bank, cam_idx, bg, **self.step_kw)
-        with torch.no_grad():
-            copy_state_(state, new)
-            for k, buf in self.out.items():
-                buf.index_copy_(0, at, getattr(m, k).reshape(1))
-            self.cursor.add_(1)
+        return _step_core(state, self.bank, cam_idx, bg, **self.step_kw)
 
     def run(self, cam_indices, bgs) -> tuple[TrainState, StepMetrics]:
-        """Replay the step once per view of the window; metrics [W] on the
-        card (copies: the next window reuses the buffers)."""
+        """Replay the step once per view of the window."""
         # From pinned host memory without blocking: a pageable copy would
         # wait for the card (torch synchronizes the stream after one).
         cam_indices, bgs = (
@@ -378,14 +430,7 @@ class StepGraph:
             for t in (torch.as_tensor(cam_indices, dtype=torch.int32),
                       torch.as_tensor(bgs, dtype=torch.float32)))
         w = cam_indices.shape[0]
-        if w > GRAPH_WINDOW:
-            raise ValueError(f"a window of {w} steps is longer than the "
-                             f"captured step's buffers ({GRAPH_WINDOW})")
+        self.check_window(w)
         self.cam_buf[:w].copy_(cam_indices, non_blocking=True)
         self.bg_buf[:w].copy_(bgs, non_blocking=True)
-        self.cursor.zero_()
-        for _ in range(w):
-            self.graph.replay()
-        for k, n in self.launches.items():
-            replayed_launch_counts[k] += n * w
-        return self.state, StepMetrics(**{k: v[:w].clone() for k, v in self.out.items()})
+        return self._replay(w)

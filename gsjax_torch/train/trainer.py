@@ -27,7 +27,9 @@ Torch specifics:
   and read the state's tensors without writing any.
 * With a `mesh` (a ("data", "tile") DeviceMesh, gsjax_torch.parallel)
   every rank runs this loop on its own replica of the state: each window
-  is a Python loop of the mesh-sharded step, one camera per data group;
+  runs the mesh-sharded step, one camera per data group (on a CUDA mesh
+  replays of its captured CUDA graph, parallel/step.py; on a CPU mesh,
+  whose gloo collectives cannot be captured, a Python loop);
   every rank makes the same schedule, densify and reset decisions from the
   same seeds. Only rank 0 writes files (PLY, checkpoints, snapshots,
   TensorBoard), evaluates, prints and serves the viewer.
@@ -404,7 +406,7 @@ class Trainer:
             wb(bank.tan_fovx[idxs]),
             wb(bank.tan_fovy[idxs]),
             wb(gt),
-            bgs.to(dev),
+            bgs,
             self.active_sh_degree,
         )
         return m
@@ -700,6 +702,7 @@ class Trainer:
                 f"\n[ITER {iteration}] growing capacity {cap} -> {new_cap} "
                 f"(alive={n_alive}, dropped={n_dropped})"
             )
+            self.events.append({"grow": iteration, "from": cap, "to": new_cap})
             self._assign(grow_capacity(self.state, new_cap))
         self._post_densify_budget_check(iteration, n_alive)
 
@@ -865,7 +868,7 @@ class Trainer:
                 f"\n[ITER {iteration}] Evaluating {name}: L1 {l1:.6f} PSNR {ps:.3f}"
             )
             self.events.append({"eval": name, "iteration": iteration, "l1": l1,
-                                "psnr": ps})
+                                "psnr": ps, "points": self.n_alive()})
             if self.tb is not None:
                 self.tb.add_scalar(f"{name}/loss_viewpoint - l1_loss", l1, iteration)
                 self.tb.add_scalar(f"{name}/loss_viewpoint - psnr", ps, iteration)

@@ -81,6 +81,23 @@ def test_renders_on_cpu_with_jax_unimportable():
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
 
 
+def _checkpoint_to_ply(**kw):
+    """tools.ckpt_to_ply.export of a checkpoint written on the CPU."""
+    import tempfile
+
+    from gsjax_torch.tools.ckpt_to_ply import export
+    from gsjax_torch.train.checkpoint import save_checkpoint
+    from gsjax_torch.train.optimizer import adam_init
+    from gsjax_torch.train.step import TrainState
+
+    params, aux = random_scene(10, device="cpu")
+    state = TrainState(params, adam_init(params), aux, torch.tensor(1, dtype=torch.int32))
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = os.path.join(root, "chkpnt1.npz")
+        save_checkpoint(ckpt, state, 0, 1.0)
+        return export(ckpt, root, **kw)
+
+
 ENTRY_POINTS = {
     "random_scene": lambda **kw: random_scene(10, **kw),
     "look_at_origin_camera": lambda **kw: look_at_origin_camera(**kw),
@@ -97,6 +114,7 @@ ENTRY_POINTS = {
     "densify_stats_from_numpy": lambda **kw: densify_stats_from_numpy(
         dict.fromkeys(("n_alive", "n_cloned", "n_split", "n_pruned", "n_dropped"), 0),
         **kw),
+    "ckpt_to_ply.export": _checkpoint_to_ply,
 }
 
 

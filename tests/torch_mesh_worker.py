@@ -1,4 +1,5 @@
-"""Worker process for the port's mesh tests on the CPU (gloo).
+"""Worker process for the port's mesh tests on the CPU (gloo), and for the
+mesh window's test across cards (NCCL).
 
 Launched by tests/test_torch_parallel.py and tests/test_torch_multihost.py
 as one process per rank, with gsjax's launch protocol (COORDINATOR_ADDRESS,
@@ -9,6 +10,10 @@ NUM_PROCESSES, PROCESS_ID) in the environment:
 or, as the task `cli`, under torchrun (its MASTER_ADDR protocol):
 
     torchrun --nproc_per_node 2 tests/torch_mesh_worker.py cli <train flags>
+
+or, as the task `graph` on "cuda" or "cpu", under torchrun:
+
+    torchrun --nproc_per_node 4 tests/torch_mesh_worker.py graph <out_dir> cuda
 
 Joins the process group through
 gsjax_torch.parallel.multihost.maybe_init_distributed (the code under
@@ -212,8 +217,71 @@ def task_cli(argv):
                os.path.join(os.environ["GSJT_OUT"], f"rank{os.environ['RANK']}.pt"))
 
 
+# The mesh window across ranks: 20k Gaussians at 320x240 in 16x16 tiles
+# (15 tile rows: slabs of 8 at 2 ranks, 4 at 4), two orbit views.
+GRAPH_N = 20_000
+GRAPH_W, GRAPH_H = 320, 240
+GRAPH_CFG = RasterConfig(tile_size=16, max_instances=1 << 17, max_rows=1 << 16)
+GRAPH_STEPS = 6
+
+
+def task_graph(out, argv):
+    """The mesh window on the world's ranks, on `argv[0]` ("cuda" or
+    "cpu"), at (1, world) and, for a world of four, (2, 2): GRAPH_STEPS
+    steps from one state twice as the eager loop and once as the window
+    (on a CUDA mesh replays of the captured sharded step, on gloo the
+    loop). Per mesh: whether the two eager windows agree bit for bit,
+    whether the window equals them bit for bit, the captures made and a
+    digest of the window's state (every rank holds the same replica)."""
+    import hashlib
+
+    from gsjax_torch.parallel.mesh import local_rank
+    from gsjax_torch.render.api import render
+    from gsjax_torch.train import step as steps_mod
+
+    device = argv[0]
+    dev = torch.device("cuda", local_rank()) if device == "cuda" else torch.device("cpu")
+    params, aux = random_scene(GRAPH_N, capacity=GRAPH_N, sh_degree=SH_DEG, seed=3, device=dev)
+    target, _ = random_scene(GRAPH_N, sh_degree=SH_DEG, seed=4, device=dev)
+    cams = [orbit_camera(a, width=GRAPH_W, height=GRAPH_H, device=dev) for a in (0.1, -0.2)]
+    with torch.no_grad():
+        gts = [render(target, c, active_sh_degree=SH_DEG, bg_color=torch.zeros(3, device=dev),
+                      cfg=GRAPH_CFG, alive=aux.alive).image for c in cams]
+    world = dist.get_world_size()
+
+    def as_bytes(state, metrics):
+        return b"".join([t.detach().cpu().numpy().tobytes() for t in state_tensors(state)]
+                        + [getattr(metrics, k).cpu().numpy().tobytes()
+                           for k in steps_mod.METRIC_DTYPES])
+
+    for d, t in [(1, world)] + ([(2, world // 2)] if world == 4 else []):
+        mesh = make_mesh(device, data=d, tile=t)
+        steps = make_sharded_train_steps(
+            mesh, height=GRAPH_H, width=GRAPH_W, active_sh_degree=SH_DEG,
+            opt_cfg=OptimizationConfig(), raster_cfg=GRAPH_CFG, spatial_lr_scale=1.0)
+        picks = [[(k + j) % len(cams) for j in range(d)] for k in range(GRAPH_STEPS)]
+        window = tuple(torch.stack([torch.stack([get(i) for i in row]) for row in picks])
+                       for get in (lambda i: cams[i].view, lambda i: cams[i].full_proj,
+                                   lambda i: cams[i].cam_center, lambda i: cams[i].tan_fovx,
+                                   lambda i: cams[i].tan_fovy, lambda i: gts[i]))
+        bgs = torch.linspace(0.0, 1.0, GRAPH_STEPS * 3).reshape(GRAPH_STEPS, 3)
+        start = TrainState(params=params, opt=adam_init(params), aux=aux,
+                           step=torch.ones((), dtype=torch.int32, device=dev))
+        eager_a = as_bytes(*steps.loop(clone_state(start), *window, bgs))
+        eager_b = as_bytes(*steps.loop(clone_state(start), *window, bgs))
+        steps_mod.drop_step_graphs()
+        steps_mod.reset_graph_counts()
+        state, metrics = steps(clone_state(start), *window, bgs)
+        got = as_bytes(state, metrics)
+        out[f"graph_{d}x{t}"] = {
+            "eager_bitwise": eager_a == eager_b, "graph_bitwise": got == eager_a,
+            "captures": len(steps_mod.captures), "digest": hashlib.sha256(got).hexdigest(),
+            "loss": metrics.loss.cpu()}
+        steps_mod.drop_step_graphs()
+
+
 TASKS = {"parallel4": task_parallel4, "parallel2": task_parallel2,
-         "multihost": task_multihost}
+         "multihost": task_multihost, "graph": task_graph}
 WORKER = os.path.abspath(__file__)
 REPO = os.path.dirname(os.path.dirname(WORKER))
 
@@ -241,7 +309,8 @@ def main() -> None:
         task_cli(sys.argv[2:])
         return
     task, out_dir = sys.argv[1], sys.argv[2]
-    if not maybe_init_distributed("cpu"):
+    device = sys.argv[3] if task == "graph" else "cpu"
+    if not maybe_init_distributed(device):
         raise SystemExit("the worker needs the COORDINATOR_ADDRESS protocol")
     out = {"rank": dist.get_rank(), "world": dist.get_world_size(),
            "host_views": list(host_local_views(5))}
