@@ -25,8 +25,14 @@ Phases, one JSON line each (any failure exits non-zero):
   main     the bench scene (500k Gaussians, SH degree 3, 1920x1080, 32x32
            tiles) rendered from four views, exact and fast_fwd, through
            render(); the forward kernels' launch counts over that run
-  views    per-view render time (CUDA events and host clock)
   profile  device time by kernel over one render (torch.profiler)
+  views    per-view render time (CUDA events and host clock), exact and
+           fast_fwd, dispatched and as replays of the captured render
+           (render/graph.py; one capture for the four views), each replay
+           equal to the main phase's eager render bit for bit; then
+           cli.render's render_set from budgets the bench view outgrows:
+           the outgrown capture is dropped, one of the grown budgets taken,
+           and the frames equal eager renders at them bit for bit
   tiles    the composite kernels at 64x32 and 64x64 tiles (up to four
            pixels per thread) against their plain versions on the mid
            scene (also in the oracle phase, at 64x32); in every mid-scene
@@ -44,7 +50,9 @@ Phases, one JSON line each (any failure exits non-zero):
            lr units); ms per step, device busy ms and idle share of each;
            the capture's warm-up and capture ms and its pool's bytes; the
            kernels' launches (capture count times replays) cross-checked
-           by torch.profiler
+           by torch.profiler; two replayed windows with a replayed viewer
+           frame between them against the same two without it: the step's
+           registry untouched, the states equal bit for bit
   densify  on the train phase's state (500k Gaussians at capacity 500k):
            densify_and_prune at full capacity (candidates dropped),
            grow_capacity to 2^20 (the trainer grows when a densify drops),
@@ -68,19 +76,21 @@ Phases, one JSON line each (any failure exits non-zero):
            Scene serving a NetworkGUI on a free port; a client thread sends
            20 requests at 1920x1080 from the four main-phase views, a
            zero-resolution keep-alive and a last request to train, which
-           ends Trainer._poll_gui; each frame within one uint8 level of a
-           direct fast_fwd render of the original camera, the state
-           untouched; frame ms (send to last byte; median, p90), fps, the
-           render's share, bytes per frame, the forward kernels' launches
-           per frame
+           ends Trainer._poll_gui; the frames are replays of one captured
+           render, each within one uint8 level of a direct replay of the
+           original camera, which equals its eager render bit for bit; the
+           state untouched; frame ms (send to last byte; median, p90,
+           the first with the capture), fps, the render's share, bytes per
+           frame, the capture, the forward kernels' launches per frame
   lpips    a seeded random-weights LPIPS npz passes check_lpips_weights;
            lpips on the card equals lpips on the CPU within rtol 1e-4
            (128x128 pair); ms per 1080p pair against its bound
   tools    also queue item 7's profilers through their run functions on
-           the bench scene: bench_fps, trace_step (the train step's device
-           time by op and by op family, idle gaps), trace_binning,
-           profile_kernels (16x16 tiles) and bench_sweep (32x32, 16x16);
-           after the trainer phase, bench_trained on its PLY
+           the bench scene: trace_step (the train step's device time by op
+           and by op family, idle gaps), trace_binning, profile_kernels
+           (16x16 tiles); after every profiled measurement bench_fps and
+           bench_sweep (32x32, 16x16), replayed and dispatched; after the
+           trainer phase, bench_trained on its PLY
   mesh     the device mesh (gsjax_torch.parallel) on this card: a
            world-size-1 NCCL group and a 1x1 ("data", "tile") DeviceMesh on
            the bench scene; render_sharded and composite_slab at 2 and 4
@@ -121,8 +131,10 @@ Phases, one JSON line each (any failure exits non-zero):
            launches over the run; then a run resumed from the checkpoint at
            200 (without TensorBoard), whose checkpoint at 300 must equal
            the straight run's bit for bit where the graph phase found the
-           eager step reproducible. Runs last, after every profiled
-           measurement, just before the kernels line
+           eager step reproducible; the straight run's evaluation of all
+           eight views through its captured evaluation and eagerly, ms per
+           view, bit for bit. Runs last, after every profiled measurement,
+           just before the kernels line
   cull     at the bench origin view: for each warp shape (32x1, 16x2, 8x4)
            the (instance, warp) pairs the exact walk visits, those the
            cull keeps and those with a live pixel; the culled composite
@@ -136,8 +148,14 @@ Phases, one JSON line each (any failure exits non-zero):
            on the bench origin view (one line per measurement), with the
            tools kernels' launch counts over it;
            then each kernel against its plain version at that view's own
-           arguments (row_gather: the instance gather's (N,16) rows at P)
-  bench    gsjax_torch.bench's JSON line on the bench scene
+           arguments (row_gather: the instance gather's (N,16) rows at P);
+           on both streams the ablation probes against the kernels they
+           launch as: blockout = composite_forward and replay_fwd,
+           fwd_nocond = its red at pixel 0, bit for bit; bwd_nowrite = the
+           chunk-head sums of composite_backward's d_mx within 1e-6
+  bench    gsjax_torch.bench's JSON line on the bench scene (value: the
+           replayed step; the dispatched one beside it), after every
+           profiled measurement
   stages   gsjax_torch.profile_stages' table on the bench scene
 Then the `kernels` line: for the forward kernels at the origin view's
 render, for the backward kernels at one training step, for the tools'
@@ -774,6 +792,40 @@ def check_tool_kernels(torch, tool_kernels, stream, where):
     return errs, variant_errs
 
 
+def probes_against_main(torch, tool_kernels, stream, where) -> dict:
+    """The ablation probes against the kernels they take apart, which they
+    launch as (tools/kernels.py), on one instance stream: blockout equals
+    composite_forward bit for bit, replay_fwd and fwd_nocond its red at
+    pixel 0 bit for bit, and bwd_nowrite the chunk-head sums of
+    composite_backward's d_mx on the same cotangent within 1e-6 of each
+    sum's magnitudes (the kernel adds them in another order). Raises
+    otherwise."""
+    from gsjax_torch.render import kernels
+
+    inst, ts, geo = stream.inst, stream.tile_start, stream.geometry
+    with torch.no_grad():
+        color, trans = kernels.composite_forward(inst, ts, **geo)
+        b_color, b_trans = tool_kernels.blockout(inst, ts, **geo)
+        out = {"blockout_bitwise": torch.equal(b_color.view(torch.int32),
+                                               color.view(torch.int32))
+               and torch.equal(b_trans[..., 0].view(torch.int32), trans.view(torch.int32))}
+        red = color[:, 0, 0].view(torch.int32)
+        for name in ("replay_fwd", "fwd_nocond"):
+            got = tool_kernels.variant(inst, ts, name, **geo).reshape(-1)
+            out[f"{name}_bitwise"] = torch.equal(got.view(torch.int32), red)
+        cot = tool_kernels.bwd_nowrite_cot(geo["n_tiles"], geo["tile_w"] * geo["tile_h"],
+                                           inst.device)
+        grads = kernels.composite_backward(inst, ts, cot, **geo)
+        want = tool_kernels._chunk_head_sums(grads, ts, geo["n_tiles"])
+        mag = tool_kernels._chunk_head_sums(grads.abs(), ts, geo["n_tiles"])
+        got = tool_kernels.variant(inst, ts, "bwd_nowrite", **geo).reshape(-1)
+        out["bwd_nowrite_rel_err"] = float(((got - want).abs() / mag.clamp(min=1e-30)).max())
+    if not all(v for k, v in out.items() if k.endswith("_bitwise")) or not (
+            out["bwd_nowrite_rel_err"] <= 1e-6):
+        raise AssertionError(f"{where}: the probes differ from the main kernels: {out}")
+    return out
+
+
 def phase_tools(torch, tool_kernels, stream_mid, stream_bench):
     """The tools' kernels against their plain versions on the mid scene;
     then the tools' own path on the bench origin view with the four
@@ -785,7 +837,9 @@ def phase_tools(torch, tool_kernels, stream_mid, stream_bench):
     mid_errs, mid_variants = check_tool_kernels(torch, tool_kernels, stream_mid,
                                                 "mid scene")
     emit({"phase": "tools", "case": "mid_scene", "max_abs_err": mid_errs,
-          "variants": mid_variants})
+          "variants": mid_variants,
+          "probes_vs_main": probes_against_main(torch, tool_kernels, stream_mid,
+                                                "mid scene")})
     torch.cuda.synchronize()
     tool_kernels.reset_launch_counts()
     rows = ablate_kernels.ablate(
@@ -802,9 +856,10 @@ def phase_tools(torch, tool_kernels, stream_mid, stream_bench):
     emit({"phase": "tools", "launches": launches})
     errs, variant_errs = check_tool_kernels(torch, tool_kernels, stream_bench,
                                             "bench view")
+    probes = probes_against_main(torch, tool_kernels, stream_bench, "bench view")
     emit({"phase": "tools", "case": "bench_view", "max_abs_err": errs,
-          "variants": variant_errs})
-    return rows, launches, mid_errs, errs, variant_errs
+          "variants": variant_errs, "probes_vs_main": probes})
+    return rows, launches, mid_errs, errs, variant_errs, probes
 
 
 def phase_cull(torch, kernels, tool_kernels, origin_calls, train_calls):
@@ -849,12 +904,12 @@ def phase_cull(torch, kernels, tool_kernels, origin_calls, train_calls):
 
 
 def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
-                 variant_errs, fwd_entry, main_launches):
+                 variant_errs, probes, fwd_entry, main_launches):
     """The `kernels` line's entries of the tools' four probe kernels at the
     bench origin view: device and event ms from the tools' own run (`rows`),
     the plain versions timed here, bounds from this view's data (the
     composite's pairs are the forward entry's, counted on the same
-    stream)."""
+    stream), and the probes against the main kernels (`probes`)."""
     from gsjax_torch.render.common import N_FIELDS, ROWS
     from gsjax_torch.tools.common import cuda_ms, device_ms
     from gsjax_torch.tools.probe_prims import gather_bytes
@@ -910,7 +965,8 @@ def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
           n_live * 9 * 4 + ts.numel() * 4 + n_tiles * pix * 16,
           pairs * COMPOSITE_FLOP_PER_PAIR, semantics="arbitrary",
           call=lambda: tool_kernels.blockout(inst, ts, **geo),
-          parallel_ms=timed["blockout_parallel"]["ms"])
+          parallel_ms=timed["blockout_parallel"]["ms"],
+          equals_composite_forward_bitwise=probes["blockout_bitwise"])
     entry("variant", timed["bwd_nowrite"]["ms"], timed["bwd_nowrite"]["event_ms"],
           lambda: tool_kernels.variant_plain(inst, ts, "bwd_nowrite", **geo),
           n_live * 64 + n_tiles * pix * 16 + ts.numel() * 4 + n_tiles * 4,
@@ -920,7 +976,8 @@ def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
           variants={v: dict(ms=timed[v]["ms"], event_ms=timed[v]["event_ms"],
                             max_abs_err=variant_errs[v]) for v in tool_kernels.VARIANTS},
           composite_forward_ms=timed["composite_forward"]["ms"],
-          composite_backward_ms=timed["composite_backward"]["ms"])
+          composite_backward_ms=timed["composite_backward"]["ms"],
+          probes_vs_main={k: v for k, v in probes.items() if k != "blockout_bitwise"})
     return out
 
 
@@ -966,6 +1023,106 @@ def twin_entries(torch, tool_kernels, entries, origin_calls, train_calls,
             bytes=main["bytes"], flops=main["flops"], main_ms=main["ms"],
             **ops_per_call(lambda: twin(*args, **kw), DEVICE_KERNELS[twin_name])))
     return out
+
+
+def views_line(torch, draw, draw_replayed, eager_outputs, views, fast):
+    """The views phase for one mode: per view the ms of a render dispatched
+    (render()) and of a replay of the captured render (render_replayed),
+    by CUDA events over 5 renders each after a warm-up (the first replay
+    captures), and by the host clock over one render of each view; every
+    replay equal to the main phase's eager render of its view bit for bit;
+    the replays' launches (one graph for the four views)."""
+    from gsjax_torch.render import graph
+    from gsjax_torch.tools.common import cuda_ms
+
+    graph.drop_render_graphs()
+    graph.reset_graph_counts()
+    dispatched, replayed, bitwise = [], [], {}
+    for view in views:
+        dispatched.append(cuda_ms(lambda: draw(view, fast), reps=5))
+        replayed.append(cuda_ms(lambda: draw_replayed(view, fast), reps=5))
+        got, want = draw_replayed(view, fast), eager_outputs[(view, fast)]
+        bitwise[view] = (torch.equal(got.image.view(torch.int32), want.image.view(torch.int32))
+                         and int(got.num_instances) == int(want.num_instances))
+    if not all(bitwise.values()):
+        raise AssertionError(f"views: replays differ from eager renders: {bitwise}")
+    host = {}
+    for form, fn in (("dispatched", draw), ("replayed", draw_replayed)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for view in views:
+            fn(view, fast)
+        torch.cuda.synchronize()
+        host[form] = (time.perf_counter() - t0) * 1e3 / len(views)
+    per_replay = graph.captures[-1]["launches"]
+    if len(graph.captures) != 1 or any(per_replay[k] != 1 for k in ("composite_forward",
+                                                                  "rank_prefix")):
+        raise AssertionError(f"views: captures {graph.captures}")
+    mean = sum(replayed) / len(replayed)
+    mean_dispatched = sum(dispatched) / len(dispatched)
+    return {"phase": "views", "fast_fwd": fast, "ms_per_view": replayed,
+            "mean_ms": mean, "ms_per_view_dispatched": dispatched,
+            "mean_ms_dispatched": mean_dispatched, "host_ms_per_view": host["replayed"],
+            "host_ms_per_view_dispatched": host["dispatched"],
+            "mpx_per_s": BENCH_W * BENCH_H / mean / 1e3,
+            "mpx_per_s_dispatched": BENCH_W * BENCH_H / mean_dispatched / 1e3,
+            "replays_equal_eager_bitwise": bitwise, "capture": graph.captures[-1],
+            "replayed_launches": dict(graph.replayed_launch_counts)}
+
+
+def render_set_growth(torch, render, params, aux, views):
+    """cli.render's render_set on a bank of the four views from budgets of
+    2^19 / 2^18, under the bench view's 1.16M pairs: the first frame
+    overflows, the captured render of the outgrown budgets is dropped and
+    one of the grown budgets captured; every frame equal to an eager
+    render at the grown budgets bit for bit. The saved frames are
+    collected in place of the PNGs."""
+    import io
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from gsjax_torch.cli import render as render_cli
+    from gsjax_torch.config import RasterConfig
+    from gsjax_torch.render import graph
+    from gsjax_torch.scene import CameraBank
+
+    t0 = time.perf_counter()
+    shape = (BENCH_H, BENCH_W)
+    bank = CameraBank.from_cameras(list(views.values()),
+                                   [np.zeros((3, *shape), np.uint8)] * len(views),
+                                   [np.full((1, *shape), 255, np.uint8)] * len(views))
+    frames = {}
+    save_png = render_cli.save_png
+    render_cli.save_png = lambda path, image: frames.__setitem__(path, image)
+    graph.drop_render_graphs()
+    graph.reset_graph_counts()
+    small = RasterConfig(tile_w=32, tile_h=32, max_instances=1 << 19, max_rows=1 << 18)
+    bg = torch.zeros(3, device=params.device)
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=build) as model, \
+                contextlib.redirect_stdout(io.StringIO()):
+            cfg = render_cli.render_set(model, "test", 0, [bank], params, aux.alive, 3,
+                                        bg, small)
+    finally:
+        render_cli.save_png = save_png
+    budgets = [c["budgets"] for c in graph.captures]
+    renders = [frames[p] for p in sorted(frames) if "/renders/" in p]
+    with torch.no_grad():
+        bitwise = [torch.equal(got.view(torch.int32), render(
+            params, cam, active_sh_degree=3, bg_color=bg, cfg=cfg,
+            alive=aux.alive).image.view(torch.int32))
+            for got, cam in zip(renders, views.values())]
+    if (len(renders) != len(views) or not all(bitwise) or budgets[0] != [1 << 19, 1 << 18]
+            or budgets[-1] != [cfg.max_instances, cfg.max_rows] or len(budgets) < 2):
+        raise AssertionError(f"render_set: budgets {budgets}, frames equal {bitwise}")
+    graph.drop_render_graphs()
+    return {"phase": "views", "case": "render_set_growth", "captured_budgets": budgets,
+            "final_budgets": [cfg.max_instances, cfg.max_rows],
+            "frames_equal_eager_bitwise": bitwise, "seconds": time.perf_counter() - t0}
 
 
 def phase_train(torch, kernels, random_scene, camera, gt, dev):
@@ -1235,9 +1392,45 @@ def phase_graph(torch, kernels, state, bank, cfg):
                                GRAPH_STEPS))
     line["profiler_launches_per_replay"] = replay_launches_seen(
         torch, kernels, steps, lambda: graphed(gs), GRAPH_STEPS, "graph")
+    line["frame_between_windows"] = frame_between_windows(torch, steps, graphed, gs, start,
+                                                          bank, cfg)
     steps.drop_step_graphs()
     emit(line)
     return line
+
+
+def frame_between_windows(torch, steps, graphed, state, start, bank, cfg) -> dict:
+    """Two replayed windows from `start` on `state` (the tensors the
+    captured step is bound to), once as they are and once with a viewer
+    frame between them (a replayed fast render of the state, its own
+    capture): the frame leaves the captured step's registry as it is,
+    and the two runs end in the same state bit for bit. Raises
+    otherwise."""
+    import dataclasses
+
+    from gsjax_torch.render.graph import render_replayed
+
+    def two_windows(frame: bool):
+        steps.copy_state_(state, start)
+        graphed(state)
+        registry = dict(steps._GRAPHS)
+        if frame:
+            cam, _ = bank.pick(bank.count - 1)
+            render_replayed(state.params, cam, active_sh_degree=3,
+                            bg_color=torch.zeros(3, device=cam.device),
+                            cfg=dataclasses.replace(cfg, fast_fwd=True),
+                            alive=state.aux.alive)
+        kept = steps._GRAPHS == registry
+        out = graphed(state)
+        return steps.clone_state(out[0]), out[1], kept
+
+    a, ma, _ = two_windows(False)
+    b, mb, kept = two_windows(True)
+    equal = states_equal(torch, steps, a, b, ma, mb)
+    if not (kept and equal):
+        raise AssertionError(f"graph: a frame between windows changed the step registry "
+                             f"({not kept}) or the next window ({not equal})")
+    return {"step_registry_unchanged": kept, "next_window_equal_bitwise": equal}
 
 
 # --- densification and the scene path ------------------------------------------
@@ -1981,10 +2174,14 @@ def phase_viewer(torch, kernels, render, scene, model_cfg, views):
     zero-resolution keep-alive and a last request with train true, which
     ends Trainer._poll_gui. Each reply equals image_to_bytes of a direct
     fast_fwd render of the original camera within one uint8 level
-    (tests/test_viewer.py:158); the frames write nothing of the state. Frame
-    ms from send to last byte, the render's share, bytes per frame, and
-    the forward kernels' launches per frame (counts set to 0 just before
-    the poll and read just after)."""
+    (tests/test_viewer.py:158); the frames write nothing of the state. The
+    frames are replays of one captured render (Trainer.render_view,
+    render/graph.py): a direct replay of each view equals its eager render
+    bit for bit. Frame ms from send to last byte (the first frame holds
+    the capture), the render's share, bytes per frame, the capture, and
+    the forward kernels' launches per frame by the replays (counts set to
+    0 just before the poll and read just after)."""
+    import dataclasses
     import socket
     import threading
 
@@ -2030,13 +2227,15 @@ def phase_viewer(torch, kernels, render, scene, model_cfg, views):
     try:
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
+        steps.reset_graph_counts()
         client.start()
         t0 = time.perf_counter()
         trainer._poll_gui(1, trainer.opt_cfg.iterations)
         poll_s = time.perf_counter() - t0
         client.join(120)
         torch.cuda.synchronize()
-        launches = dict(kernels.launch_counts)
+        launches = dict(steps.replayed_launch_counts)
+        captured = list(steps.captures)
     finally:
         gui.close()
     if client.is_alive() or "error" in out or len(out["replies"]) != len(messages):
@@ -2047,8 +2246,19 @@ def phase_viewer(torch, kernels, render, scene, model_cfg, views):
     if out["replies"][VIEWER_FRAMES][0] is not None:
         raise AssertionError("viewer: the keep-alive got a frame")
     trainer.render_view = render_view
-    direct = [np.frombuffer(NetworkGUI.image_to_bytes(trainer.render_view(c, fast=True)),
-                            np.uint8).astype(np.int16) for c in cams]
+    if len(captured) != 1 or captured[0]["graph"] != "render":
+        raise AssertionError(f"viewer: captures {captured}")
+    replays = [trainer.render_view(c, fast=True) for c in cams]
+    fast_cfg = dataclasses.replace(cfg, fast_fwd=True)
+    with torch.no_grad():
+        replay_bitwise = [torch.equal(img.view(torch.int32), render(
+            trainer.state.params, c, active_sh_degree=sh, bg_color=trainer.background,
+            cfg=fast_cfg, alive=trainer.state.aux.alive).image.view(torch.int32))
+            for img, c in zip(replays, cams)]
+    if not all(replay_bitwise):
+        raise AssertionError(f"viewer: replayed frames differ from eager: {replay_bitwise}")
+    direct = [np.frombuffer(NetworkGUI.image_to_bytes(img), np.uint8).astype(np.int16)
+              for img in replays]
     diffs = [int(np.abs(np.frombuffer(frame, np.uint8).astype(np.int16) - direct[i]).max())
              for i, (frame, _) in served]
     if max(diffs) > 1:
@@ -2062,6 +2272,7 @@ def phase_viewer(torch, kernels, render, scene, model_cfg, views):
     if any(per_frame[k] not in (v if isinstance(v, tuple) else (v,))
            for k, v in expected.items()):
         raise AssertionError(f"viewer: launches per frame {per_frame}")
+    first_frame_ms = served[0][1][1] * 1e3
     frame_ms = sorted(dt * 1e3 for _, (_, dt) in served)
     median = frame_ms[len(frame_ms) // 2]
     render_sorted = sorted(render_ms)
@@ -2074,7 +2285,9 @@ def phase_viewer(torch, kernels, render, scene, model_cfg, views):
           "render_ms_median": render_sorted[len(render_sorted) // 2],
           "render_share": render_sorted[len(render_sorted) // 2] / median,
           "bytes_per_frame": BENCH_W * BENCH_H * 3, "max_level_diff": max(diffs),
-          "launches_per_frame": per_frame, "poll_seconds": poll_s,
+          "launches_per_frame": per_frame, "first_frame_ms": first_frame_ms,
+          "capture": captured[0], "replays_equal_eager_bitwise": replay_bitwise,
+          "poll_seconds": poll_s,
           "phase_seconds": time.perf_counter() - t_phase})
     del trainer, before
 
@@ -2159,31 +2372,32 @@ def phase_lpips(torch, root):
     return path
 
 
+def timed_tool(torch, seconds: dict, name: str, fn):
+    """fn()'s result; its seconds (to a synchronize) in seconds[name]."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds[name] = time.perf_counter() - t0
+    return out
+
+
 def phase_profilers(torch, params, aux, camera, cfg):
-    """Queue item 7's profilers (gsjax_torch.tools.{bench_fps, trace_step,
-    trace_binning, profile_kernels, bench_sweep}) through their run
-    functions on the bench scene already built, at TOOL_ITERS where they
-    take a depth: one `tools` line per measurement. trace_step's families
-    must hold the composite kernels, binning, gathers, preprocess, SSIM,
-    L1 and Adam, and cover its device ops; trace_binning's calls split
-    one by one."""
+    """Queue item 7's profilers that read torch.profiler
+    (gsjax_torch.tools.{trace_step, trace_binning, profile_kernels})
+    through their run functions on the bench scene already built, at
+    TOOL_ITERS where they take a depth: one `tools` line per measurement.
+    trace_step's families must hold the composite kernels, binning,
+    gathers, preprocess, SSIM, L1 and Adam, and cover its device ops;
+    trace_binning's calls split one by one."""
     from gsjax_torch.config import RasterConfig
-    from gsjax_torch.tools import (
-        bench_fps, bench_sweep, profile_kernels, trace_binning, trace_step,
-    )
+    from gsjax_torch.tools import profile_kernels, trace_binning, trace_step
 
     t_phase = time.perf_counter()
     seconds = {}
 
     def tool(name, fn):
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        seconds[name] = time.perf_counter() - t0
-        return out
+        return timed_tool(torch, seconds, name, fn)
 
-    for row in tool("bench_fps", lambda: bench_fps.run(params, aux, iters=TOOL_ITERS)):
-        emit(dict(phase="tools", **row))
     step = tool("trace_step", lambda: trace_step.run(params, aux, camera, cfg))
     want = {"composite kernels", "binning", "gathers", "preprocess", "SSIM", "L1", "Adam"}
     if not want <= set(step["by_family_ms"]):
@@ -2197,8 +2411,29 @@ def phase_profilers(torch, params, aux, camera, cfg):
     for row in tool("profile_kernels", lambda: profile_kernels.run(
             params, aux, camera, pk_cfg, iters=TOOL_ITERS, device_reps=TOOL_ITERS)):
         emit(dict(phase="tools", profile_kernels=True, **row))
+    emit({"phase": "tools", "seconds": seconds,
+          "phase_seconds": time.perf_counter() - t_phase})
+
+
+def phase_replayed_timing(torch, params, aux, camera, cfg):
+    """What times replays of captured graphs, after every profiled
+    measurement (torch.profiler misses kernel events after many replays in
+    one process, PERF.md §7): gsjax_torch.bench's line (its value the
+    replayed step, the dispatched step beside it), then bench_fps and
+    bench_sweep (32x32, 16x16) through their run functions at TOOL_ITERS,
+    each replayed and dispatched: one line per measurement."""
+    from gsjax_torch import bench
+    from gsjax_torch.tools import bench_fps, bench_sweep
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    line = timed_tool(torch, seconds, "bench", lambda: bench.run(params, aux, camera, cfg))
+    emit(dict(phase="bench", **line))
+    for row in timed_tool(torch, seconds, "bench_fps",
+                          lambda: bench_fps.run(params, aux, iters=TOOL_ITERS)):
+        emit(dict(phase="tools", **row))
     configs = bench_sweep.parse_configs(SWEEP_CONFIGS)
-    for row in tool("bench_sweep", lambda: bench_sweep.run(
+    for row in timed_tool(torch, seconds, "bench_sweep", lambda: bench_sweep.run(
             params, aux, camera, configs, iters=TOOL_ITERS, fwd_only=True)):
         emit(dict(phase="tools", **row))
     emit({"phase": "tools", "seconds": seconds,
@@ -2432,7 +2667,8 @@ def phase_tools_rest(torch, params, aux, camera, view_counts):
         artifact = os.path.join(root, "quality_run.json")
         with without_tensorboard():
             _, text = quietly(lambda: quality_run.main([
-                "--root", sky_root, "--out", artifact,
+                "--scene_dir", os.path.join(sky_root, "scene"),
+                "--model_dir", os.path.join(sky_root, "quality"), "--out", artifact,
                 "--iterations", str(QUALITY_ITERATIONS),
                 "--test_iterations", str(QUALITY_ITERATIONS // 2),
                 str(QUALITY_ITERATIONS)]))
@@ -2474,6 +2710,40 @@ def without_tensorboard():
             del sys.modules["torch.utils.tensorboard"]
         else:
             sys.modules["torch.utils.tensorboard"] = saved
+
+
+def eval_timing(torch, trainer) -> dict:
+    """The held-out evaluation of a trained Trainer's state on every view
+    of its test and train banks: through Trainer._eval_bank as replays of
+    its captured evaluation (render/graph.py EvalGraph) and eagerly (the
+    same calls with graphs off), ms per view by the host clock around a
+    call that ends in its one read-back, after a warm call; the two
+    results bit for bit."""
+    from gsjax_torch.render import graph
+
+    banks = [b for b in (*trainer.scene.get_test_banks(), *trainer.banks) if b.count]
+
+    def evaluate():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = [trainer._eval_bank(b, list(range(b.count))) for b in banks]
+        return out, (time.perf_counter() - t0) * 1e3
+
+    n_views = sum(b.count for b in banks)
+    evaluate()
+    graphed, ms = evaluate()
+    uses_graphs = graph.uses_graphs
+    graph.uses_graphs = lambda device: False
+    try:
+        evaluate()
+        eager, eager_ms = evaluate()
+    finally:
+        graph.uses_graphs = uses_graphs
+    if graphed != eager:
+        raise AssertionError(f"trainer: the replayed evaluation {graphed} differs from "
+                             f"the eager one {eager}")
+    return {"views": n_views, "ms_per_view": ms / n_views,
+            "ms_per_view_dispatched": eager_ms / n_views, "replays_equal_eager": True}
 
 
 def phase_trainer(torch, kernels, render, params, resume_bitwise, lpips_weights):
@@ -2571,6 +2841,7 @@ def phase_trainer(torch, kernels, render, params, resume_bitwise, lpips_weights)
         if not (0.0 < results["SSIM"] <= 1.0 and math.isfinite(results["PSNR"])
                 and results["LPIPS"] is not None and math.isfinite(results["LPIPS"])):
             raise AssertionError(f"trainer: results.json {results}")
+        line["eval"] = eval_timing(torch, trainer)
         del trainer
 
         with without_tensorboard():
@@ -2602,6 +2873,7 @@ def main() -> int:
     from gsjax_torch.config import RasterConfig
     from gsjax_torch.render import kernels
     from gsjax_torch.render.api import render, render_oracle
+    from gsjax_torch.render.graph import render_replayed
     from gsjax_torch.synthetic import (
         look_at_origin_camera, orbit_camera, random_scene,
     )
@@ -2640,6 +2912,10 @@ def main() -> int:
         return render(params, views[view], active_sh_degree=3, bg_color=bg,
                       cfg=cfgs[fast], alive=aux.alive)
 
+    def draw_replayed(view, fast):
+        return render_replayed(params, views[view], active_sh_degree=3, bg_color=bg,
+                               cfg=cfgs[fast], alive=aux.alive)
+
     results = {}
     with torch.no_grad():
         torch.cuda.synchronize()
@@ -2677,29 +2953,16 @@ def main() -> int:
         emit(line)
     emit({"phase": "main", "scene_seconds": scene_s, "launches": launches})
 
-    # --- per-view time --------------------------------------------------------
-    origin_ms = {}
     with torch.no_grad():
+        # --- device time by kernel over one render (dispatched) -------------
         for fast in (False, True):
-            ms = []
-            for view in views:
-                ms.append(cuda_ms(lambda: draw(view, fast), reps=5))
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for view in views:
-                draw(view, fast)
-            torch.cuda.synchronize()
-            host_ms = (time.perf_counter() - t0) * 1e3 / len(views)
-            mean_ms = sum(ms) / len(ms)
-            origin_ms[fast] = ms[0]
-            emit({"phase": "views", "fast_fwd": fast, "ms_per_view": ms,
-                  "mean_ms": mean_ms, "host_ms_per_view": host_ms,
-                  "mpx_per_s": BENCH_W * BENCH_H / mean_ms / 1e3})
-
-        # --- device time by kernel over one render ---------------------------
-        for fast in (False, True):
+            origin_ms = cuda_ms(lambda: draw("origin", fast), reps=5)
             emit(dict(phase="profile", view="origin", fast_fwd=fast,
-                      **profile_table(lambda: draw("origin", fast), origin_ms[fast])))
+                      **profile_table(lambda: draw("origin", fast), origin_ms)))
+        # --- per-view time, dispatched and as replays of the captured render -
+        for fast in (False, True):
+            emit(views_line(torch, draw, draw_replayed, results, views, fast))
+    emit(render_set_growth(torch, render, params, aux, views))
 
     # --- the training step at full width -----------------------------------
     gt = results[("origin", False)].image
@@ -2737,9 +3000,8 @@ def main() -> int:
     tools = phase_tools(torch, tool_kernels, stream_mid, stream_bench)
     del stream_mid, mid_params, mid_aux
 
-    from gsjax_torch import bench, profile_stages
+    from gsjax_torch import profile_stages
 
-    emit(dict(phase="bench", **bench.run(params, aux, views["origin"], cfgs[False])))
     stages = profile_stages.profile(
         profile_stages.Stages(params, aux, views["origin"], cfgs[False]))
     emit(dict(phase="stages", **stages))
@@ -2855,6 +3117,8 @@ def main() -> int:
     # scaling_projection (after the kernels line's measurements) -------------
     phase_tools_rest_profiled(torch, params, aux, views["origin"], cfgs[False],
                               stages["stages"])
+    # --- the bench line and the timing tools, as replays of captured graphs --
+    phase_replayed_timing(torch, params, aux, views["origin"], cfgs[False])
 
     # --- the device mesh on this card: a 1x1 mesh over NCCL --------------------
     # After the profiled measurements (it times by CUDA events and the host

@@ -6,13 +6,21 @@ scene (500k Gaussians, SH degree 3, tools/common.bench_scene), its
 budgets and 32x32 tiles, L1 against a zero image, gradients with respect
 to every raw parameter and mean2d_offset, and a zero-magnitude SGD update
 (p - 0 * g) that chains each step to the one before, as training does.
-3 warm-up steps, then 20 timed by CUDA events and synchronised.
+
+`value` times the step as bench.py does, compiled: bench.py times a
+jitted step, and the port's counterpart is a window of ITERS replays of
+one captured CUDA graph of the step (ScanStep), timed by CUDA events
+after WARMUP dispatched steps and one warm window. The same ITERS steps
+dispatched one at a time from the host (~1800 launches each), timed the
+same way, stand beside it under `ms_per_step_dispatched`: the figure
+this line reported before, and what a loop of eager calls pays.
 
     python -m gsjax_torch.bench
 
 Prints ONE JSON line:
   {"metric": "pixels_per_s_fwd_bwd_1080p", "value": N, "unit": "pixel/s",
-   "vs_baseline": N / 31.1e6, "ms_per_step": ..., "device": ...}
+   "vs_baseline": N / 31.1e6, "ms_per_step": ..., "ms_per_step_dispatched":
+   ..., "pixels_per_s_dispatched": ..., "device": ...}
 The baseline is bench.py's: the reference CUDA rasterizer's ~15
 fwd+bwd iterations/s at 1080p on an RTX/A6000-class GPU (BASELINE.md).
 Without a card it prints that line with value 0 and an "error", and exits
@@ -27,7 +35,8 @@ import torch
 
 from gsjax_torch.model import PARAM_NAMES
 from gsjax_torch.render.api import render
-from gsjax_torch.tools.common import SH_DEGREE, bench_scene
+from gsjax_torch.render.graph import capture_graph, count_replays
+from gsjax_torch.tools.common import SH_DEGREE, bench_scene, cuda_ms
 from gsjax_torch.train.loss import l1_loss
 
 METRIC = "pixels_per_s_fwd_bwd_1080p"
@@ -70,26 +79,51 @@ class BenchStep:
         return loss.detach()
 
 
+class ScanStep:
+    """`window` runs of `step` (a callable returning a 0-d loss on
+    `device`), captured once as a CUDA graph of one run
+    (render/graph.capture_graph) and replayed: the port's lax.scan of a
+    jitted step. Each replay writes the step's loss into row `cursor` of
+    `losses` and adds one to the cursor on the device."""
+
+    def __init__(self, step, window: int, device: torch.device):
+        self.step, self.window = step, window
+        self.losses = torch.zeros(window, device=device)
+        self.cursor = torch.zeros((), dtype=torch.int64, device=device)
+        self.graph, self.launches = capture_graph(
+            self._body, device, {"graph": "scan", "window": window})
+
+    def _body(self) -> None:
+        loss = self.step()
+        self.losses.index_copy_(0, self.cursor.view(1), loss.reshape(1))
+        self.cursor.add_(1)
+
+    def __call__(self) -> torch.Tensor:
+        """The window's losses, [window] on the device (the buffer the next
+        call overwrites)."""
+        self.cursor.zero_()
+        for _ in range(self.window):
+            self.graph.replay()
+        count_replays(self.launches, self.window)
+        return self.losses
+
+
 def run(params, aux, camera, cfg, warmup: int = WARMUP, iters: int = ITERS) -> dict:
-    """The bench line for this scene, timed on the card."""
+    """The bench line for this scene, timed on the card: `iters` replayed
+    steps (value) and `iters` dispatched ones."""
     step = BenchStep(params, aux, camera, cfg)
-    for _ in range(warmup):
-        step()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        loss = step()
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / iters
-    if not bool(torch.isfinite(loss)):
-        raise AssertionError(f"bench: non-finite loss {float(loss)}")
-    pixels_per_s = camera.width * camera.height / (ms / 1e3)
+    dispatched_ms = cuda_ms(step, reps=iters, warmup=warmup)
+    scan = ScanStep(step, iters, params.device)
+    ms = cuda_ms(scan, reps=1, warmup=1) / iters
+    if not bool(torch.isfinite(scan.losses).all()):
+        raise AssertionError(f"bench: non-finite loss {scan.losses.tolist()}")
+    px = camera.width * camera.height
+    pixels_per_s = px / (ms / 1e3)
     return {"metric": METRIC, "value": round(pixels_per_s, 1), "unit": "pixel/s",
             "vs_baseline": round(pixels_per_s / BASELINE_PIXELS_PER_S, 4),
-            "ms_per_step": ms, "device": torch.cuda.get_device_name(0)}
+            "ms_per_step": ms, "ms_per_step_dispatched": dispatched_ms,
+            "pixels_per_s_dispatched": round(px / (dispatched_ms / 1e3), 1),
+            "device": torch.cuda.get_device_name(0)}
 
 
 def main() -> None:

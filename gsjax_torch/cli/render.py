@@ -1,6 +1,9 @@
 """Batch novel-view rendering CLI (reference: render.py:24-65): loads a
 trained model at iteration N and renders every train/test view to PNGs
-under <model>/{train,test}/ours_<it>/{renders,gt}.
+under <model>/{train,test}/ours_<it>/{renders,gt}. On the card each view
+is a replay of the render captured for its resolution and budgets
+(render/graph.py), as gsjax jits one per (width, height, budgets); on the
+CPU the renders run eagerly.
 
     python -m gsjax_torch.cli.render -m <model dir> [--iteration N]
 """
@@ -17,7 +20,7 @@ import torch
 
 from gsjax_torch.cli.args import add_group, extract, get_combined_args
 from gsjax_torch.config import ModelConfig, PipelineConfig, RasterConfig, pow2_budget
-from gsjax_torch.render.api import render
+from gsjax_torch.render.graph import drop_render_graphs, render_replayed
 from gsjax_torch.scene import Scene
 from gsjax_torch.utils.general import safe_state
 
@@ -39,7 +42,9 @@ def render_set(
     Returns the (possibly grown) RasterConfig: a frame whose true
     (gaussian, tile) pair count exceeds the static budget is rendered
     again with the budget doubled to the next power of two — dropped pairs
-    would silently degrade the output images.
+    would silently degrade the output images. A growth drops the captured
+    renders of the outgrown budgets, as gsjax clears its jit cache
+    (gsjax/cli/render.py:74).
     """
     render_path = os.path.join(model_path, name, f"ours_{iteration}", "renders")
     gts_path = os.path.join(model_path, name, f"ours_{iteration}", "gt")
@@ -51,11 +56,12 @@ def render_set(
         for i in range(bank.count):
             cam, gt = bank.pick(i)
             while True:
-                out = render(params, cam, active_sh_degree=sh_degree, bg_color=bg,
-                             cfg=cfg, alive=alive)
+                out = render_replayed(params, cam, active_sh_degree=sh_degree,
+                                      bg_color=bg, cfg=cfg, alive=alive)
                 ninst, nrows = int(out.num_instances), int(out.num_rows)
                 if ninst <= cfg.max_instances and nrows <= cfg.max_rows:
                     break
+                drop_render_graphs()
                 cfg = dataclasses.replace(
                     cfg,
                     max_instances=max(pow2_budget(ninst), cfg.max_instances),

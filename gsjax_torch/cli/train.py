@@ -15,7 +15,10 @@ COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID protocol):
         -m <model dir> --data_device cpu --data_parallel 2 --tile_parallel 2
 
 The collectives run on NCCL for `--data_device cuda`, on gloo for `cpu`.
-Rank 0 alone writes the model directory, prints and serves the viewer."""
+Rank 0 alone writes the model directory, prints and serves the viewer.
+An in-process caller may pass main() the Trainer's starting RasterConfig
+(pre-sized budgets, as gsjax's tools/quality_run.py hands its Trainer);
+the command line has no such flag, as gsjax's has none."""
 
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import torch
 import torch.distributed as dist
 
 from gsjax_torch.cli.args import extract, make_train_parser, save_cfg_args
-from gsjax_torch.config import ModelConfig, OptimizationConfig, PipelineConfig
+from gsjax_torch.config import ModelConfig, OptimizationConfig, PipelineConfig, RasterConfig
 from gsjax_torch.parallel.mesh import make_mesh
 from gsjax_torch.parallel.multihost import maybe_init_distributed
 from gsjax_torch.scene import Scene
@@ -58,7 +61,7 @@ def prepare_output_and_logger(model_cfg: ModelConfig) -> tuple[ModelConfig, obje
     return model_cfg, tb_writer
 
 
-def main(argv=None) -> Trainer:
+def main(argv=None, raster_cfg: RasterConfig | None = None) -> Trainer:
     parser = make_train_parser()
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
     if args.orbax:
@@ -81,13 +84,13 @@ def main(argv=None) -> Trainer:
                 f"{n} -m gsjax_torch.cli.train ...")
         mesh = make_mesh(device_type, data=args.data_parallel, tile=args.tile_parallel)
     try:
-        return _train(args, model_cfg, opt_cfg, pipe_cfg, mesh)
+        return _train(args, model_cfg, opt_cfg, pipe_cfg, mesh, raster_cfg)
     finally:
         if own_group:
             dist.destroy_process_group()
 
 
-def _train(args, model_cfg, opt_cfg, pipe_cfg, mesh) -> Trainer:
+def _train(args, model_cfg, opt_cfg, pipe_cfg, mesh, raster_cfg) -> Trainer:
     is_main = mesh is None or mesh.get_rank() == 0
     save_iterations = list(args.save_iterations) + [opt_cfg.iterations]
     if is_main:
@@ -126,6 +129,7 @@ def _train(args, model_cfg, opt_cfg, pipe_cfg, mesh) -> Trainer:
             model_cfg,
             opt_cfg,
             pipe_cfg,
+            raster_cfg=raster_cfg,
             start_checkpoint=args.start_checkpoint,
             tb_writer=tb_writer,
             gui=gui,

@@ -40,19 +40,17 @@
 // enough warp blocks: on the bench view (H100) it takes the forward from
 // 0.510 to 0.434 ms at 32x32 tiles and from 0.439 to 0.420 at 32x16, but
 // at 16x16, where footprints cover most of a tile's eight blocks, it cost
-// 0.381 -> 0.404 ms (PERF.md). So a tile culls from kCullMinPixels on.
-// The walk itself is gsjt::forward_tile (composite_walk.cuh), which the
-// probes of composite_probes.cu instantiate in other modes, and without
-// the cull as the reference twin gsjt_composite_forward_nocull.
+// 0.381 -> 0.404 ms (PERF.md). So a tile culls from gsjt::kCullMinPixels
+// on. The walk itself is gsjt::forward_tile (composite_walk.cuh), and the
+// launch gsjt::forward_launch: the probes of composite_probes.cu take
+// both in other modes, and without the cull as the reference twin
+// gsjt_composite_forward_nocull.
 
 #include <cuda_runtime.h>
 
 #include "composite_walk.cuh"
 
 namespace {
-
-// Tiles of fewer pixels walk without the cull.
-constexpr int kCullMinPixels = 512;
 
 // Two blocks of 1024 threads per SM at one pixel per thread.
 template <int PPT, bool kCull>
@@ -77,24 +75,18 @@ extern "C" int gsjt_composite_forward(const float* inst, const int* tile_start,
                                       float* color, float* trans, int n_tiles,
                                       int tiles_x, int tile_w, int tile_h,
                                       void* stream) {
-  const int warp_w = gsjt::warp_map(tile_w, tile_h);
-  const int strips = gsjt::tile_strips(tile_w, tile_h, warp_w);
-  const int pix = tile_w * tile_h / strips;
-  const int ppt = gsjt::pixels_per_thread(pix);
-  const int threads = gsjt::block_threads(pix, ppt);
-  const bool cull = tile_w * tile_h >= kCullMinPixels;
-  const size_t smem = gsjt::forward_smem(threads, cull);
+  const gsjt::ForwardLaunch l = gsjt::forward_launch(tile_w, tile_h);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return gsjt::launch_with_ppt(ppt, [&](auto kPpt) {
+  return gsjt::launch_with_ppt(l.ppt, [&](auto kPpt) {
     constexpr int P = decltype(kPpt)::value;
-    if (cull) {
-      composite_forward_kernel<P, true><<<n_tiles * strips, threads, smem, s>>>(
-          inst, tile_start, color, trans, tiles_x, tile_w, tile_h, warp_w,
-          strips);
+    if (l.cull) {
+      composite_forward_kernel<P, true><<<n_tiles * l.strips, l.threads, l.smem, s>>>(
+          inst, tile_start, color, trans, tiles_x, tile_w, tile_h, l.warp_w,
+          l.strips);
     } else {
-      composite_forward_kernel<P, false><<<n_tiles * strips, threads, smem, s>>>(
-          inst, tile_start, color, trans, tiles_x, tile_w, tile_h, warp_w,
-          strips);
+      composite_forward_kernel<P, false><<<n_tiles * l.strips, l.threads, l.smem, s>>>(
+          inst, tile_start, color, trans, tiles_x, tile_w, tile_h, l.warp_w,
+          l.strips);
     }
   });
 }

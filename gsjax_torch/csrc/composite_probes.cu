@@ -17,31 +17,36 @@
 //
 // Design: each probe is the main path's own walk (composite_walk.cuh:
 // gsjt::forward_tile, gsjt::backward_tile) instantiated in another mode,
-// so a probe differs from the kernel it ablates only in what it drops:
-//   outpath ship     the forward, written as rows [r, g, b, T, 0...] of a
-//                    (T, 8, PIX) block, the TPU kernel's transposed layout
-//   outpath notrans  the forward, whose block holds only its sums: the same
-//                    write traffic without the layout work
-//   blockout         the forward with pixel-major outputs; on this card
-//                    that is the forward kernel itself. The TPU grid's
-//                    dimension semantics have no counterpart here.
-//   dma_only         the staging of every chunk of the range, no walk
+// so a probe differs from the kernel it ablates only in what it drops.
+// The ablations launch as the kernels that ship: blockout and the forward
+// variants take the main forward's launch (gsjt::forward_launch: the warp
+// map, one block per strip, the cull from 512-pixel tiles on), the
+// backward variants the main backward's (four pixels per thread, the warp
+// map, the cull):
+//   blockout         the forward with pixel-major outputs: the forward
+//                    kernel itself, bit for bit. The TPU grid's dimension
+//                    semantics have no counterpart here.
+//   dma_only         the staging of every chunk of the tile's range, once
+//                    per strip block, no walk
 //   fwd_nodep        the walk restarted from T = 1 at every 128-instance
 //                    chunk: no carried transmittance between chunks
 //   fwd_nocond       the walk without its stops: no per-pixel break, no
 //                    block exit
-//   replay_fwd       the forward's walk with its stops, one float out
+//   replay_fwd       the forward's walk with its stops, one float out: the
+//                    forward's red at pixel 0, bit for bit
 //   bwd_nowrite      the backward without its gradient write
-//   bwd_noshfl       the main backward (warp map and cull) without its
-//                    warp butterflies: lane 0's own terms as each warp's
-//                    partial, the other lanes' folded into a kept-live sum
-//                    (nine adds per walked row in place of 45 shuffles and
-//                    45 adds)
-// An ablation whose output reads one value keeps every dropped result
-// live (gsjt::keep_live, with a run-time zero), so nvcc cannot delete the
-// work it stands for. The probes above bwd_noshfl keep the walk they were
-// first measured on, the row-major warp map without the cull, so that
-// their times stay comparable.
+//   bwd_noshfl       the backward without its warp butterflies: lane 0's
+//                    own terms as each warp's partial, the other lanes'
+//                    folded into a kept-live sum (nine adds per walked row
+//                    in place of 45 shuffles and 45 adds)
+// The one-float probes write out[t] from strip 0 (pixel 0 lies there);
+// the cull drops only rows that every pixel of a warp skips (power > 0 or
+// alpha < 1/255), a rule none of the modes changes, so it is exact for
+// them. An ablation whose output reads one value keeps every dropped
+// result live (gsjt::keep_live, with a run-time zero), so nvcc cannot
+// delete the work it stands for.
+// outpath keeps the walk it was first measured on, the row-major warp map
+// without the cull or strips.
 // The twins are the main kernels with the cull off: the same warp map,
 // arguments and outputs, every staged row walked by every warp. The main
 // kernels must equal them bit for bit (chip_smoke.py, the card tests).
@@ -64,15 +69,16 @@ outpath_kernel(const float* __restrict__ inst,
                                  tile_w, tile_h, 0, 1, 0.0f);
 }
 
-template <int PPT>
-__global__ void __launch_bounds__(1024)
+// composite_forward.cu's kernel under the probe's name.
+template <int PPT, bool kCull>
+__global__ void __launch_bounds__(1024, PPT == 1 ? 2 : 1)
 blockout_kernel(const float* __restrict__ inst,
                 const int* __restrict__ tile_start,
                 float* __restrict__ out_color, float* __restrict__ out_t,
-                int tiles_x, int tile_w, int tile_h) {
-  gsjt::forward_tile<PPT, gsjt::kForward>(inst, tile_start, out_color, out_t,
-                                          tiles_x, tile_w, tile_h, 0, 1,
-                                          0.0f);
+                int tiles_x, int tile_w, int tile_h, int warp_w, int strips) {
+  gsjt::forward_tile<PPT, gsjt::kForward, kCull>(
+      inst, tile_start, out_color, out_t, tiles_x, tile_w, tile_h, warp_w,
+      strips, 0.0f);
 }
 
 // The main kernels' twins: composite_forward.cu's and
@@ -99,47 +105,49 @@ nocull_backward_kernel(const float* __restrict__ inst,
       inst, tile_start, cot, grads, tiles_x, tile_w, tile_h, warp_w, 0.0f);
 }
 
-template <int PPT, int kMode>
-__global__ void __launch_bounds__(1024)
+// The forward variants, at the main forward's launch bounds.
+template <int PPT, int kMode, bool kCull>
+__global__ void __launch_bounds__(1024, PPT == 1 ? 2 : 1)
 variant_walk_kernel(const float* __restrict__ inst,
                     const int* __restrict__ tile_start,
                     float* __restrict__ out, int tiles_x, int tile_w,
-                    int tile_h, float keep) {
-  gsjt::forward_tile<PPT, kMode>(inst, tile_start, out, nullptr, tiles_x,
-                                 tile_w, tile_h, 0, 1, keep);
+                    int tile_h, int warp_w, int strips, float keep) {
+  gsjt::forward_tile<PPT, kMode, kCull>(inst, tile_start, out, nullptr,
+                                        tiles_x, tile_w, tile_h, warp_w,
+                                        strips, keep);
 }
 
-// bwd_nowrite (one pixel per thread at 32x32) is held to the occupancy of
-// the row-major one-pixel backward it ablates, which fit in 32 registers,
-// two blocks per SM; without the write nvcc takes 47 and halves the blocks
-// in flight.
-// bwd_noshfl launches at the main backward's four pixels per thread.
-template <int PPT, int kMode, bool kCull>
-__global__ void __launch_bounds__(1024, PPT == 1 ? 2 : 1)
+// The backward variants, at composite_backward.cu's launch and launch
+// bounds (at most 64 registers a thread, which at 32x32 tiles' 256-thread
+// blocks leaves four blocks on an SM): each is that kernel less one part,
+// in the same occupancy.
+template <int kMode>
+__global__ void __launch_bounds__(1024)
 variant_bwd_kernel(const float* __restrict__ inst,
                    const int* __restrict__ tile_start,
                    const float4* __restrict__ cot, float* __restrict__ out,
                    int tiles_x, int tile_w, int tile_h, int warp_w,
                    float keep) {
-  gsjt::backward_tile<PPT, kMode, kCull>(inst, tile_start, cot, out, tiles_x,
-                                         tile_w, tile_h, warp_w, keep);
+  gsjt::backward_tile<gsjt::kBackwardPpt, kMode, true>(
+      inst, tile_start, cot, out, tiles_x, tile_w, tile_h, warp_w, keep);
 }
 
 // dma_only: the tile's chunks [c0, c0 + n) staged through shared memory as
 // the forward stages rows (batches of blockDim.x rows, 36 bytes each, one
-// row per thread), unmasked: the first chunk's rows before i0 too. Output
-// 1e-20 * the sum of each chunk's first mean x, in chunk order.
+// row per thread), unmasked: the first chunk's rows before i0 too, by each
+// of the tile's `strips` blocks. Output (strip 0) 1e-20 * the sum of each
+// chunk's first mean x, in chunk order.
 __global__ void __launch_bounds__(1024)
 variant_dma_kernel(const float* __restrict__ inst, int n_rows,
                    const int* __restrict__ tile_start,
-                   float* __restrict__ out, float keep) {
+                   float* __restrict__ out, int strips, float keep) {
   extern __shared__ float4 smem[];
   const int batch = blockDim.x;
   float4* s_geo = smem;
   float4* s_col = smem + batch;
   float* s_op = reinterpret_cast<float*>(smem + 2 * batch);
 
-  const int tile = blockIdx.x;
+  const int tile = blockIdx.x / strips;
   const int i0 = tile_start[tile];
   const int i1 = tile_start[tile + 1];
   const int c0 = i0 / kChunk;
@@ -170,7 +178,7 @@ variant_dma_kernel(const float* __restrict__ inst, int n_rows,
       fold += g.y + g.z + g.w + c.x + c.y + c.z + c.w + s_op[q];
     }
   }
-  if (threadIdx.x == 0) out[tile] = 1e-20f * acc;
+  if (threadIdx.x == 0 && blockIdx.x % strips == 0) out[tile] = 1e-20f * acc;
   gsjt::keep_live(fold, keep, out + tile);
 }
 
@@ -209,69 +217,97 @@ extern "C" int gsjt_outpath(const float* inst, const int* tile_start,
   });
 }
 
-// As gsjt_composite_forward: color (n_tiles, PIX, 3), trans (n_tiles, PIX).
+// As gsjt_composite_forward, at its launch: color (n_tiles, PIX, 3), trans
+// (n_tiles, PIX).
 extern "C" int gsjt_blockout(const float* inst, const int* tile_start,
                              float* color, float* trans, int n_tiles,
                              int tiles_x, int tile_w, int tile_h,
                              void* stream) {
-  const int pix = tile_w * tile_h;
-  const int ppt = gsjt::pixels_per_thread(pix);
-  const int threads = gsjt::block_threads(pix, ppt);
-  const size_t smem = gsjt::forward_smem(threads, false);
-  return gsjt::launch_with_ppt(ppt, [&](auto kPpt) {
-    blockout_kernel<decltype(kPpt)::value>
-        <<<n_tiles, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-            inst, tile_start, color, trans, tiles_x, tile_w, tile_h);
+  const gsjt::ForwardLaunch l = gsjt::forward_launch(tile_w, tile_h);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return gsjt::launch_with_ppt(l.ppt, [&](auto kPpt) {
+    constexpr int P = decltype(kPpt)::value;
+    if (l.cull) {
+      blockout_kernel<P, true><<<n_tiles * l.strips, l.threads, l.smem, s>>>(
+          inst, tile_start, color, trans, tiles_x, tile_w, tile_h, l.warp_w,
+          l.strips);
+    } else {
+      blockout_kernel<P, false><<<n_tiles * l.strips, l.threads, l.smem, s>>>(
+          inst, tile_start, color, trans, tiles_x, tile_w, tile_h, l.warp_w,
+          l.strips);
+    }
   });
 }
+
+namespace {
+
+template <int P, int kMode>
+void launch_walk(const gsjt::ForwardLaunch& l, int n_tiles, cudaStream_t s,
+                 const float* inst, const int* tile_start, float* out,
+                 int tiles_x, int tile_w, int tile_h, float keep) {
+  if (l.cull) {
+    variant_walk_kernel<P, kMode, true><<<n_tiles * l.strips, l.threads, l.smem, s>>>(
+        inst, tile_start, out, tiles_x, tile_w, tile_h, l.warp_w, l.strips, keep);
+  } else {
+    variant_walk_kernel<P, kMode, false><<<n_tiles * l.strips, l.threads, l.smem, s>>>(
+        inst, tile_start, out, tiles_x, tile_w, tile_h, l.warp_w, l.strips, keep);
+  }
+}
+
+}  // namespace
 
 // inst: (n_rows, 16) f32; tile_start: (n_tiles + 1) i32; cot: (n_tiles,
 // PIX, 4) f32, read by the backward variants only; out: (n_tiles,) f32,
 // or for kBwdNoShfl the (n_rows, 16) gradients, zero-filled by the caller.
-// keep must be 0 (see gsjt::keep_live).
+// keep must be 0 (see gsjt::keep_live). An unknown variant is
+// cudaErrorInvalidValue.
 extern "C" int gsjt_variant(const float* inst, int n_rows,
                             const int* tile_start, const float* cot,
                             float* out, int n_tiles, int tiles_x, int tile_w,
                             int tile_h, int variant, float keep,
                             void* stream) {
-  const int pix = tile_w * tile_h;
+  if (variant < kDmaOnly || variant > kBwdNoShfl) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (variant == kBwdNoShfl) {  // the main backward's launch
-    const int threads = gsjt::backward_threads(pix);
+  if (variant == kBwdNoWrite || variant == kBwdNoShfl) {  // the main backward's launch
+    const int threads = gsjt::backward_threads(tile_w * tile_h);
     if (threads == 0) return static_cast<int>(cudaErrorInvalidValue);
-    variant_bwd_kernel<gsjt::kBackwardPpt, gsjt::kBwdNoShfl, true>
-        <<<n_tiles, threads, gsjt::backward_smem(threads), s>>>(
-            inst, tile_start, reinterpret_cast<const float4*>(cot), out,
-            tiles_x, tile_w, tile_h, gsjt::warp_map(tile_w, tile_h), keep);
+    const size_t smem = gsjt::backward_smem(threads);
+    const float4* c = reinterpret_cast<const float4*>(cot);
+    const int warp_w = gsjt::warp_map(tile_w, tile_h);
+    if (variant == kBwdNoShfl) {
+      variant_bwd_kernel<gsjt::kBwdNoShfl><<<n_tiles, threads, smem, s>>>(
+          inst, tile_start, c, out, tiles_x, tile_w, tile_h, warp_w, keep);
+    } else {
+      variant_bwd_kernel<gsjt::kBwdNoWrite><<<n_tiles, threads, smem, s>>>(
+          inst, tile_start, c, out, tiles_x, tile_w, tile_h, warp_w, keep);
+    }
     return static_cast<int>(cudaGetLastError());
   }
-  const int ppt = gsjt::pixels_per_thread(pix);
-  const int threads = gsjt::block_threads(pix, ppt);
-  const size_t smem = gsjt::forward_smem(threads, false);
-  return gsjt::launch_with_ppt(ppt, [&](auto kPpt) {
+  const gsjt::ForwardLaunch l = gsjt::forward_launch(tile_w, tile_h);
+  if (variant == kDmaOnly) {
+    if (l.threads == 0) return static_cast<int>(cudaErrorInvalidValue);
+    // The rows alone: 36 bytes a staged row, no boxes.
+    variant_dma_kernel<<<n_tiles * l.strips, l.threads,
+                         gsjt::forward_smem(l.threads, false), s>>>(
+        inst, n_rows, tile_start, out, l.strips, keep);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return gsjt::launch_with_ppt(l.ppt, [&](auto kPpt) {
     constexpr int P = decltype(kPpt)::value;
     switch (variant) {
-      case kDmaOnly:
-        variant_dma_kernel<<<n_tiles, threads, smem, s>>>(
-            inst, n_rows, tile_start, out, keep);
-        break;
       case kFwdNoDep:
-        variant_walk_kernel<P, gsjt::kNoDep><<<n_tiles, threads, smem, s>>>(
-            inst, tile_start, out, tiles_x, tile_w, tile_h, keep);
+        launch_walk<P, gsjt::kNoDep>(l, n_tiles, s, inst, tile_start, out,
+                                     tiles_x, tile_w, tile_h, keep);
         break;
       case kFwdNoCond:
-        variant_walk_kernel<P, gsjt::kNoCond><<<n_tiles, threads, smem, s>>>(
-            inst, tile_start, out, tiles_x, tile_w, tile_h, keep);
+        launch_walk<P, gsjt::kNoCond>(l, n_tiles, s, inst, tile_start, out,
+                                      tiles_x, tile_w, tile_h, keep);
         break;
-      case kReplayFwd:
-        variant_walk_kernel<P, gsjt::kReplay><<<n_tiles, threads, smem, s>>>(
-            inst, tile_start, out, tiles_x, tile_w, tile_h, keep);
-        break;
-      default:
-        variant_bwd_kernel<P, gsjt::kBwdNoWrite, false>
-            <<<n_tiles, threads, gsjt::backward_smem(threads), s>>>(
-            inst, tile_start, reinterpret_cast<const float4*>(cot), out,
-            tiles_x, tile_w, tile_h, 0, keep);
+      default:  // kReplayFwd
+        launch_walk<P, gsjt::kReplay>(l, n_tiles, s, inst, tile_start, out,
+                                      tiles_x, tile_w, tile_h, keep);
     }
   });
 }
@@ -285,18 +321,13 @@ extern "C" int gsjt_composite_forward_nocull(const float* inst,
                                              int n_tiles, int tiles_x,
                                              int tile_w, int tile_h,
                                              void* stream) {
-  const int warp_w = gsjt::warp_map(tile_w, tile_h);
-  const int strips = gsjt::tile_strips(tile_w, tile_h, warp_w);
-  const int pix = tile_w * tile_h / strips;
-  const int ppt = gsjt::pixels_per_thread(pix);
-  const int threads = gsjt::block_threads(pix, ppt);
-  const size_t smem = gsjt::forward_smem(threads, false);
-  return gsjt::launch_with_ppt(ppt, [&](auto kPpt) {
+  const gsjt::ForwardLaunch l = gsjt::forward_launch(tile_w, tile_h);
+  return gsjt::launch_with_ppt(l.ppt, [&](auto kPpt) {
     nocull_forward_kernel<decltype(kPpt)::value>
-        <<<n_tiles * strips, threads, smem,
+        <<<n_tiles * l.strips, l.threads, gsjt::forward_smem(l.threads, false),
            static_cast<cudaStream_t>(stream)>>>(
-            inst, tile_start, color, trans, tiles_x, tile_w, tile_h, warp_w,
-            strips);
+            inst, tile_start, color, trans, tiles_x, tile_w, tile_h, l.warp_w,
+            l.strips);
   });
 }
 

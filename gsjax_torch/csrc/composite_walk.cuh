@@ -32,14 +32,17 @@
 // tile_pixel(v, ...): warp v / 32 of the virtual threads covers one
 // compact block of the tile (the warp map, below).
 //
-// The cull (the main kernels; kCull): a warp skips, before its walk, every
-// staged row that each of its pixels would skip. footprint_box gives each
-// row a box about its mean outside of which the exact step skips it for
-// certain; lane l of a warp tests row l of a group of 32 against the
-// rectangle of the warp's pixels, and __ballot_sync gives the group's
-// mask. The walk visits the set bits lowest first, so it takes the same
-// rows in the same order as the walk without the cull: T, the colours, the
-// suffix, the done flags and the early exit are bitwise the same.
+// The cull (the main kernels and the probes that ablate them; kCull): a
+// warp skips, before its walk, every staged row that each of its pixels
+// would skip. footprint_box gives each row a box about its mean outside of
+// which the exact step skips it for certain; lane l of a warp tests row l
+// of a group of 32 against the rectangle of the warp's pixels, and
+// __ballot_sync gives the group's mask. The walk visits the set bits lowest
+// first, so it takes the same rows in the same order as the walk without
+// the cull: T, the colours, the suffix, the done flags and the early exit
+// are bitwise the same. The probes' modes change what a walk keeps or
+// when it stops, never the skip rule (power > 0, alpha < 1/255) the cull
+// stands in for, so the cull is exact for them too.
 
 #pragma once
 
@@ -90,10 +93,14 @@ __device__ __forceinline__ float walk_t_next(float T, float alpha) {
 // per strip, up to kMaxStrips strips a tile (composite_forward.cu).
 constexpr int kMaxStrips = 4;
 constexpr int kMinStripPixels = 256;
+// Tiles of fewer pixels walk the forward without the cull
+// (composite_forward.cu says why).
+constexpr int kCullMinPixels = 512;
 
-// The warp map of the main kernels and their twins: kWarpW when kWarpW x
-// (32 / kWarpW) blocks tile a tile_w x tile_h tile exactly, else 0, the
-// row-major map p = v (a warp is 32 consecutive pixels: the probes' map).
+// The warp map of the main kernels, their twins and the ablation probes:
+// kWarpW when kWarpW x (32 / kWarpW) blocks tile a tile_w x tile_h tile
+// exactly, else 0, the row-major map p = v (a warp is 32 consecutive
+// pixels: the outpath probes' map).
 inline int warp_map(int tile_w, int tile_h) {
   return tile_w % kWarpW == 0 && tile_h % (32 / kWarpW) == 0 ? kWarpW : 0;
 }
@@ -251,6 +258,33 @@ inline size_t forward_smem(int threads, bool cull) {
          (2 * sizeof(float4) + sizeof(float) + (cull ? sizeof(float2) : 0));
 }
 
+// The main forward's launch for tile_w x tile_h tiles (composite_forward.cu),
+// which the forward probes and the twin share: the warp map, the strips
+// (one block each), pixels per thread and threads of a strip's block, the
+// cull from kCullMinPixels on, and the dynamic shared memory (with the
+// cull's boxes if `cull`). ppt and threads are 0 for a tile above 4096
+// pixels, which launch_with_ppt refuses.
+struct ForwardLaunch {
+  int warp_w;
+  int strips;
+  int ppt;
+  int threads;
+  bool cull;
+  size_t smem;
+};
+
+inline ForwardLaunch forward_launch(int tile_w, int tile_h) {
+  ForwardLaunch l;
+  l.warp_w = warp_map(tile_w, tile_h);
+  l.strips = tile_strips(tile_w, tile_h, l.warp_w);
+  const int pix = tile_w * tile_h / l.strips;
+  l.ppt = pixels_per_thread(pix);
+  l.threads = l.ppt > 0 ? block_threads(pix, l.ppt) : 0;
+  l.cull = tile_w * tile_h >= kCullMinPixels;
+  l.smem = forward_smem(l.threads, l.cull);
+  return l;
+}
+
 // The sum of v over the block, the same in every thread: an xor butterfly
 // in each warp, then the warps' sums in warp order (fixed: reproducible).
 // Every thread of the block must call it.
@@ -291,22 +325,26 @@ enum ForwardMode : int {
 
 // The forward walk of one strip of a tile over the tile's range of the
 // depth-sorted instance rows inst (P, 16). Block b takes strip b % strips
-// (tile_h / strips rows of the tile) of tile b / strips; the probes take
-// whole tiles (strips = 1). The block stages the range through shared
+// (tile_h / strips rows of the tile) of tile b / strips; the outpath
+// probes take whole tiles (strips = 1). The block stages the range through shared
 // memory (dynamic, forward_smem bytes) in batches of blockDim.x rows,
 // three loads per row, one row per thread; then every thread walks the
 // batch for each of its pixels. The block leaves once every pixel is done
 // (__syncthreads_count), except in the modes without stops. Pixels by the
-// warp map warp_w (0: row-major). With kCull (kForward only) the staging
-// thread also stores its row's footprint box, and each warp walks, in
-// every group of 32 rows, only the rows its ballot keeps.
+// warp map warp_w (0: row-major). With kCull the staging thread also
+// stores its row's footprint box, and each warp walks, in every group of
+// 32 rows, only the rows its ballot keeps (in the modes without stops the
+// ballot is taken whatever the pixels' done flags). The one-float modes
+// write out[t] from strip 0, whose thread 0 holds pixel 0 in slot 0 under
+// either map; the other strips keep their work live.
 template <int PPT, int kMode, bool kCull = false>
 __device__ __forceinline__ void forward_tile(
     const float* __restrict__ inst, const int* __restrict__ tile_start,
     float* __restrict__ out, float* __restrict__ out_t, int tiles_x,
     int tile_w, int tile_h, int warp_w, int strips, float keep) {
   constexpr bool kStops = kMode != kNoCond && kMode != kNoDep;
-  static_assert(!kCull || kMode == kForward, "the cull serves the forward");
+  static_assert(!kCull || (kMode != kOutShip && kMode != kOutNotrans),
+                "the outpath probes walk without the cull");
   extern __shared__ float4 smem[];
   __shared__ float4 s_rect[kCull ? kMaxThreads / 32 * PPT : 1];
   const int batch = blockDim.x;
@@ -327,6 +365,7 @@ __device__ __forceinline__ void forward_tile(
 
   float px[PPT], py[PPT], T[PPT], cr[PPT], cg[PPT], cbl[PPT], acc[PPT];
   bool done[PPT];
+  int cur[PPT];  // kNoDep: the 128-instance chunk the slot is walking
 #pragma unroll
   for (int i = 0; i < PPT; ++i) {
     const int v = threadIdx.x + i * batch;
@@ -338,12 +377,23 @@ __device__ __forceinline__ void forward_tile(
     T[i] = 1.0f;
     cr[i] = cg[i] = cbl[i] = acc[i] = 0.0f;
     done[i] = v >= pix;
+    cur[i] = i0 / kChunk;
     if constexpr (kCull) {
       const float4 rect = warp_rect(x, y, v < pix);
       if (lane == 0) s_rect[v >> 5] = rect;
     }
   }
   float fold = 0.0f;  // the probes' dropped results (keep_live)
+  // kNoDep: chunk j of slot i ends, restart the walk at T = 1; a chunk
+  // whose rows the slot never reaches ends with T = 1, colours 0.
+  auto restart = [&](int i) {
+    acc[i] += cr[i] + 1e-20f * T[i];
+    fold += cg[i] + cbl[i];
+    T[i] = 1.0f;
+    cr[i] = cg[i] = cbl[i] = 0.0f;
+    done[i] = threadIdx.x + i * batch >= pix;
+    ++cur[i];
+  };
 
   for (int base = i0; base < i1; base += batch) {
     // Also the barrier that keeps the previous batch's rows until every
@@ -381,14 +431,19 @@ __device__ __forceinline__ void forward_tile(
 #pragma unroll
         for (int i = 0; i < PPT; ++i) {
           // Bit l: row g0 + l meets the warp's pixels (lane l tests it
-          // whatever its own pixel's state); none once all are done.
+          // whatever its own pixel's state); with stops, none once all are
+          // done.
           const float4 rect = s_rect[(threadIdx.x >> 5) + i * (batch >> 5)];
-          const unsigned m = __any_sync(kFull, !done[i])
+          const unsigned m = !kStops || __any_sync(kFull, !done[i])
                                  ? __ballot_sync(kFull, box_meets(mx, my, h, rect))
                                  : 0u;
-          if (done[i]) continue;
+          if (kStops && done[i]) continue;
           for (unsigned bits = m; bits != 0; bits &= bits - 1) {
             const int kk = g0 + __ffs(bits) - 1;
+            if constexpr (kMode == kNoDep) {
+              while (cur[i] < (base + kk) / kChunk) restart(i);
+              if (done[i]) continue;
+            }
             const float4 g = s_geo[kk];
             const float4 c = s_col[kk];
             const float power = walk_power(walk_delta(g.x, px[i]),
@@ -396,11 +451,16 @@ __device__ __forceinline__ void forward_tile(
                                            c.x);
             if (power > 0.0f) continue;
             const float alpha = walk_alpha(s_op[kk], expf(power));
+            if constexpr (kMode == kNoCond) {
+              fold += alpha;  // a done pixel's step is work, not skipped
+              if (done[i]) continue;
+            }
             if (alpha < kAlphaSkip) continue;
             const float t_next = walk_t_next(T[i], alpha);
             if (t_next < kTEps) {
               done[i] = true;
-              break;
+              if constexpr (kStops) break;
+              continue;
             }
             const float w = __fmul_rn(alpha, T[i]);
             cr[i] = __fmaf_rn(c.y, w, cr[i]);
@@ -439,14 +499,7 @@ __device__ __forceinline__ void forward_tile(
       } else {
         for (int k = 0; k < n; ++k) {
           if constexpr (kMode == kNoDep) {
-            const int idx = base + k;
-            if (idx % kChunk == 0 && idx != i0) {  // chunk j ends: restart
-              acc[i] += cr[i] + 1e-20f * T[i];
-              fold += cg[i] + cbl[i];
-              T[i] = 1.0f;
-              cr[i] = cg[i] = cbl[i] = 0.0f;
-              done[i] = threadIdx.x + i * batch >= pix;
-            }
+            while (cur[i] < (base + k) / kChunk) restart(i);
             if (done[i]) continue;
           }
           const float4 g = s_geo[k];
@@ -528,12 +581,15 @@ __device__ __forceinline__ void forward_tile(
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
       if constexpr (kMode == kNoDep) {
-        if (i1 > i0) acc[i] += cr[i] + 1e-20f * T[i];  // the last chunk
+        if (i1 > i0) {  // up to the last chunk, then the last chunk's sum
+          while (cur[i] < (i1 - 1) / kChunk) restart(i);
+          acc[i] += cr[i] + 1e-20f * T[i];
+        }
         fold += cg[i] + cbl[i];
       }
       fold += cr[i] + cg[i] + cbl[i] + T[i] + acc[i];
     }
-    if (threadIdx.x == 0) out[tile] = kMode == kNoDep ? acc[0] : cr[0];
+    if (strip == 0 && threadIdx.x == 0) out[tile] = kMode == kNoDep ? acc[0] : cr[0];
     keep_live(fold, keep, out + tile);
   }
 }

@@ -14,14 +14,17 @@ Variants (default: dma_only replay_fwd bwd_nowrite):
   replay_fwd    the forward's walk, one float out
   bwd_nowrite   the backward without its gradient write (so is any other
                 name, as in the JAX tool)
-  bwd_noshfl    the main backward (warp map, cull, write) without its warp
-                butterflies: how much of it the shuffles take
+  bwd_noshfl    the backward without its warp butterflies: how much of it
+                the shuffles take
   blockout, blockout_parallel
                 the forward with pixel-major outputs (the TPU grid's
                 dimension semantics have no counterpart on the card)
 The backward runs, here and in the backward variants, on the JAX tool's
-cotangent (d_color 1e-6, suffix 1e-3). All variants but bwd_noshfl walk as
-the kernels did before the cull (row-major warps, every row). One JSON
+cotangent (d_color 1e-6, suffix 1e-3). Every variant and blockout launches
+as the kernel it ablates ships: the forward ones with composite_forward's
+warp map, strips and cull, the backward ones with composite_backward's
+four pixels per thread, warp map and cull. So each line beside the two
+full kernels below takes apart the kernels the render path runs. One JSON
 line each: device ms (profiler) and event ms (CUDA events, host launch
 work included), mean of REPS.
 """

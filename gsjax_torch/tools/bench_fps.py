@@ -5,11 +5,14 @@ render() under no_grad, as the viewer's frames and evaluation run it, on
 the bench scene (tools/common.bench_scene: 500k Gaussians, SH degree 3)
 from the origin view, exact and fast_fwd, in the JAX tool's three
 configurations: 1920x1080 at 32x32 and 64x32 tiles, and 960x540 at 32x32.
-ITERS renders back to back after one warm-up, timed by CUDA events.
+ITERS renders back to back after one warm-up, timed by CUDA events: as
+replays of the captured render (render/graph.py), as the port serves a
+frame and the JAX tool times a jitted one, and dispatched from the host.
 
     python -m gsjax_torch.tools.bench_fps [--iters 40]
 
-Prints one JSON line per configuration: ms and fps per render, and the
+Prints one JSON line per configuration: ms and fps per render replayed
+(`ms`, `fps`) and dispatched (`ms_dispatched`, `fps_dispatched`), and the
 view's pair count.
 """
 
@@ -45,10 +48,14 @@ def run(params, aux, iters: int = ITERS) -> list[dict]:
                                fast_fwd=fast)
             frame = forward_frame(params, aux, camera, cfg)
             pairs = int(frame().num_instances)
-            ms = cuda_ms(frame, reps=iters, warmup=1)
+            dispatched = cuda_ms(frame, reps=iters, warmup=1)
+            ms = cuda_ms(forward_frame(params, aux, camera, cfg, replayed=True),
+                         reps=iters, warmup=1)
             rows.append({"tool": "bench_fps", "width": width, "height": height,
                          "tile": f"{tw}x{th}", "fast_fwd": fast, "ms": ms,
-                         "fps": 1e3 / ms, "pairs": pairs, "overflow": pairs > maxi})
+                         "fps": 1e3 / ms, "ms_dispatched": dispatched,
+                         "fps_dispatched": 1e3 / dispatched, "pairs": pairs,
+                         "overflow": pairs > maxi})
     return rows
 
 

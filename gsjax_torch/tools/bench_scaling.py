@@ -12,7 +12,12 @@ out by rank 0).
 
     torchrun --nproc_per_node <n> -m gsjax_torch.tools.bench_scaling \
         [--tiles 1,2,4,8] [--width 640] [--height 360] [--gaussians 50000] [--iters 5]
+        [--out payload.json]
     python -m gsjax_torch.tools.bench_scaling --device cpu   # gloo, one rank
+
+`--n` is the JAX tool's name for --gaussians and works when the tool runs
+without torchrun; under torchrun only --gaussians works, since torchrun
+takes `--n` for an abbreviation of its own options.
 
 The raster budgets are sized to the view's exact pair and row counts. NCCL
 on the card, gloo with --device cpu. Rank 0 prints one JSON line.
@@ -114,21 +119,30 @@ def payload(results: list[dict], width: int, height: int, n_gaussians: int,
     return out
 
 
+def make_parser() -> argparse.ArgumentParser:
+    """The JAX tool's flags (tools/bench_scaling.py:30-42) but its TPU-only
+    --virtual, and the port's --device."""
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--tiles", default="1,2,4,8")
+    ap.add_argument("--width", type=int, default=640)
+    ap.add_argument("--height", type=int, default=360)
+    ap.add_argument("--gaussians", "--n", dest="gaussians", type=int, default=50_000,
+                    help="Gaussians in the scene; --n (the JAX tool's name) only "
+                         "without torchrun, which takes --n for its own option")
+    ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--out", default=None,
+                    help="also write the JSON payload to this file (rank 0)")
+    return ap
+
+
 def main(argv=None) -> dict | None:
     from gsjax_torch.parallel import make_mesh
     from gsjax_torch.parallel.mesh import backend_for, local_rank
     from gsjax_torch.parallel.multihost import TIMEOUT, free_port, init_local_group
     from gsjax_torch.synthetic import look_at_origin_camera, random_scene
 
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--tiles", default="1,2,4,8")
-    ap.add_argument("--width", type=int, default=640)
-    ap.add_argument("--height", type=int, default=360)
-    # Not "--n": torchrun would take it for an abbreviation of its own options.
-    ap.add_argument("--gaussians", type=int, default=50_000)
-    ap.add_argument("--iters", type=int, default=5)
-    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
-    args = ap.parse_args(argv)
+    args = make_parser().parse_args(argv)
     if args.device == "cuda":
         from gsjax_torch.tools.common import require_card
 
@@ -179,6 +193,9 @@ def main(argv=None) -> dict | None:
     out = payload(results, args.width, args.height, args.gaussians, name,
                   shares_processor=dev.type == "cpu")
     print(json.dumps(out), flush=True)
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(out, f, indent=1)
     return out
 
 

@@ -26,50 +26,12 @@ import time
 
 import torch
 
-from gsjax_torch.bench import BenchStep
+from gsjax_torch.bench import BenchStep, ScanStep
+from gsjax_torch.render.graph import captures
 
 WINDOW = 10
 OUTER = 3
 WARMUP = 2
-
-
-class ScanStep:
-    """`window` runs of a step, captured once as a CUDA graph of one run
-    and replayed: the port's lax.scan. Each replay writes the step's loss
-    into row `cursor` of `losses` and adds one to the cursor on the
-    device."""
-
-    def __init__(self, step, window: int):
-        dev = step.params.device
-        self.step, self.window = step, window
-        self.losses = torch.zeros(window, device=dev)
-        self.cursor = torch.zeros((), dtype=torch.int64, device=dev)
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(device=dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP):
-                self._body()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        self.warmup_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self._body()
-        torch.cuda.synchronize(dev)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-
-    def _body(self) -> None:
-        loss = self.step()
-        self.losses.index_copy_(0, self.cursor.view(1), loss.reshape(1))
-        self.cursor.add_(1)
-
-    def __call__(self) -> torch.Tensor:
-        self.cursor.zero_()
-        for _ in range(self.window):
-            self.graph.replay()
-        return self.losses
 
 
 def timed(fn, calls: int, steps: int) -> dict:
@@ -120,11 +82,12 @@ def run(params, aux, camera, cfg, window: int = WINDOW, outer: int = OUTER) -> d
         return loss
 
     out["dispatched"].update(busy(dispatched_window, window))
-    scan = ScanStep(step, window)
+    scan = ScanStep(step, window, params.device)
+    capture = captures[-1]
     scan()
     out["scanned"] = timed(scan, outer, window)
     out["scanned"].update(busy(scan, window))
-    out["capture"] = {"warmup_ms": scan.warmup_ms, "capture_ms": scan.capture_ms}
+    out["capture"] = {"warmup_ms": capture["warmup_ms"], "capture_ms": capture["capture_ms"]}
     for form in ("dispatched", "scanned"):
         out[form]["pixels_per_s"] = px / (out[form]["ms_per_step"] / 1e3)
     out["dispatch_share"] = 1.0 - (out["scanned"]["ms_per_step"]

@@ -4,11 +4,15 @@ counterpart of the repository's tools/bench_sweep.py.
 
 Each configuration is `<tile_w>x<tile_h>c<chunk>s<strips>[f]` (f:
 fast_fwd, forward only), with budgets per tile width (BUDGETS).
-Per configuration: train_step() (render, L1 + SSIM, backward, Adam) on
-the origin view of the bench scene (tools/common.bench_scene) from a copy
-of its state, against a zero image, timed by CUDA events over ITERS
+Per configuration: the training step (render, L1 + SSIM, backward, Adam)
+on the origin view of the bench scene (tools/common.bench_scene) from a
+copy of its state, against a zero image, timed by CUDA events over ITERS
 steps after WARMUP; with --fwd_only (or an f configuration) the forward
-render under no_grad as well. A configuration the port refuses (tiles
+render under no_grad as well. Each is timed as replays of its captured
+CUDA graph (a window of ITERS replayed steps, train_steps on the card;
+replays of the captured render), as the JAX tool times jitted functions,
+and dispatched from the host (train_step(), render()) under its own key.
+A configuration the port refuses (tiles
 over 64x64, a tile width without budgets, strips that do not divide the
 tile) is an argument error. `strips` is accepted and
 ignored, as everywhere in the port: each line says so.
@@ -29,7 +33,13 @@ import torch
 
 from gsjax_torch.config import RasterConfig
 from gsjax_torch.render import kernels
-from gsjax_torch.tools.common import bench_scene, cuda_ms, forward_frame, require_card
+from gsjax_torch.tools.common import (
+    bench_scene,
+    cuda_ms,
+    forward_frame,
+    replayed_train_steps,
+    require_card,
+)
 from gsjax_torch.tools.trace_step import bench_step
 
 ITERS = 12
@@ -80,17 +90,25 @@ def sweep_one(name, cfg, params, aux, camera, iters: int = ITERS,
     entry = {"tool": "bench_sweep", "config": name, "max_instances": cfg.max_instances,
              "max_rows": cfg.max_rows, "strips": cfg.strips, "strips_ignored": True}
     frame = forward_frame(params, aux, camera, cfg)
+    px = camera.width * camera.height
     if not cfg.fast_fwd:
-        step = bench_step(params, aux, camera, cfg)
-        ms = cuda_ms(step, reps=iters, warmup=WARMUP)
+        dispatched = cuda_ms(bench_step(params, aux, camera, cfg), reps=iters,
+                             warmup=WARMUP)
+        ms = cuda_ms(replayed_train_steps(params, aux, camera, cfg, iters), reps=1,
+                     warmup=1) / iters
         out = frame()
         entry.update(pairs=int(out.num_instances), rows=int(out.num_rows),
                      overflow=int(out.num_instances) > cfg.max_instances
                      or int(out.num_rows) > cfg.max_rows,
-                     fwd_bwd_ms=ms, px_per_s=camera.width * camera.height / (ms / 1e3))
+                     fwd_bwd_ms=ms, px_per_s=px / (ms / 1e3),
+                     fwd_bwd_ms_dispatched=dispatched,
+                     px_per_s_dispatched=px / (dispatched / 1e3))
     if fwd_only or cfg.fast_fwd:
-        ms = cuda_ms(frame, reps=iters, warmup=WARMUP)
-        entry.update(fwd_ms=ms, fps=1e3 / ms)
+        dispatched = cuda_ms(frame, reps=iters, warmup=WARMUP)
+        ms = cuda_ms(forward_frame(params, aux, camera, cfg, replayed=True), reps=iters,
+                     warmup=1)
+        entry.update(fwd_ms=ms, fps=1e3 / ms, fwd_ms_dispatched=dispatched,
+                     fps_dispatched=1e3 / dispatched)
     return entry
 
 

@@ -21,6 +21,7 @@ from gsjax_torch.core.cameras import Camera
 from gsjax_torch.render.api import depth_sorted_bins, render
 from gsjax_torch.render.binning import Binning, num_tiles
 from gsjax_torch.render.common import build_inst_data
+from gsjax_torch.render.graph import render_replayed
 from gsjax_torch.render.preprocess import preprocess
 from gsjax_torch.synthetic import look_at_origin_camera, random_scene
 
@@ -109,17 +110,51 @@ def instance_stream(params, camera, cfg, alive=None, sh_degree: int = SH_DEGREE)
 # --- timing on the card ---------------------------------------------------------
 
 
-def forward_frame(params, aux, camera, cfg, sh_degree: int = SH_DEGREE):
+def forward_frame(params, aux, camera, cfg, sh_degree: int = SH_DEGREE,
+                  replayed: bool = False):
     """A viewer frame's work as a callable: render() under no_grad on a
-    black background, returning its RenderOutput."""
+    black background, returning its RenderOutput; with `replayed`, a
+    replay of the captured render (render/graph.render_replayed, captured
+    at the first call), as the port serves a frame."""
     bg = torch.zeros(3, device=params.device)
+    fn = render_replayed if replayed else render
 
     def frame():
         with torch.no_grad():
-            return render(params, camera, active_sh_degree=sh_degree, bg_color=bg,
-                          cfg=cfg, alive=aux.alive)
+            return fn(params, camera, active_sh_degree=sh_degree, bg_color=bg,
+                      cfg=cfg, alive=aux.alive)
 
     return frame
+
+
+def replayed_train_steps(params, aux, camera, cfg, steps: int, sh_degree: int = SH_DEGREE):
+    """`steps` training steps (render, L1 + SSIM against a zero image,
+    backward, Adam) on a copy of the scene's state as one call: replays of
+    the captured step (train.step.step_graph, captured at the first call)
+    on a one-view CameraBank. Returns the callable; it returns the
+    window's losses."""
+    from gsjax_torch.config import OptimizationConfig
+    from gsjax_torch.scene import CameraBank
+    from gsjax_torch.train import step as step_mod
+    from gsjax_torch.train.optimizer import adam_init
+
+    dev = params.device
+    state = step_mod.clone_state(step_mod.TrainState(
+        params=params, opt=adam_init(params), aux=aux,
+        step=torch.ones((), dtype=torch.int32, device=dev)))
+    shape = (camera.height, camera.width)
+    bank = CameraBank.from_cameras([camera], [np.zeros((3, *shape), np.uint8)],
+                                   [np.full((1, *shape), 255, np.uint8)])
+    cams = torch.zeros(steps, dtype=torch.int32)
+    bgs = torch.zeros((steps, 3), dtype=torch.float32)
+
+    def run():
+        _, m = step_mod.train_steps(
+            state, bank, cams, bgs, active_sh_degree=sh_degree,
+            opt_cfg=OptimizationConfig(), raster_cfg=cfg, spatial_lr_scale=1.0)
+        return m.loss
+
+    return run
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:

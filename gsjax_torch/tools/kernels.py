@@ -20,9 +20,13 @@ counterpart (csrc/composite_probes.cu):
 
 The three composite probes are the main path's walks (csrc/composite_walk.cuh)
 with one part taken out, so each is held to its plain version here and
-times its part on the card. All but bwd_noshfl keep the walk they had
-before the cull (the row-major warp map, no cull), so their times stay
-comparable; bwd_noshfl ablates the main backward. Notation: tile t has the stream range
+times its part on the card. blockout and the ablation variants launch as
+the kernels that ship (the forward's warp map, strips and cull; the
+backward's four pixels per thread, warp map and cull), so each ablation
+takes apart the kernel the render path runs: blockout is the forward bit
+for bit, replay_fwd its red at pixel 0 bit for bit. outpath keeps the
+walk it was first measured on (row-major warps, no cull, whole tiles).
+Notation: tile t has the stream range
 [i0, i1) = [tile_start[t], tile_start[t+1]); its chunks are the 128-row
 blocks c0 = i0 // 128 ... c0 + n - 1 that meet the range (n = 0 for an
 empty range); pixel 0 is the tile's top-left pixel.
@@ -307,9 +311,8 @@ def variant(
       replay_fwd  the exact forward's red at pixel 0, with its stops
       bwd_noshfl  as bwd_nowrite, G the gradients of the pixels at lane 0
                   of each warp of the main kernels' warp map: the main
-                  backward (warp map, cull, write) without its warp
-                  butterflies. The kernel writes G whole; the wrapper
-                  reduces it.
+                  backward without its warp butterflies. The kernel writes
+                  G whole; the wrapper reduces it.
       any other   (bwd_nowrite) sum over k in [i0, i1), k % 128 == 0, of
                   G[k, 0], G = composite_backward with cot = [1e-6, 1e-6,
                   1e-6, 1e-3] per pixel, no gradient written

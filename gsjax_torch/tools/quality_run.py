@@ -1,11 +1,15 @@
 """A quality run on the synthetic scene, through the training CLI.
 
 Writes the ray-traced scene of `gsjax_torch.tools.synthetic_scene` (400 px,
-96 train + 8 test views) under --root (default build/quality/scene/),
-unless it is there, and trains it with `python -m gsjax_torch.cli.train`'s
-defaults plus --eval, evaluating the test views at each of
---test_iterations; then renders the test views (`cli.render
---skip_train`) and scores them (`cli.metrics`).
+96 train + 8 test views) under --scene_dir (default <root>/scene, --root
+build/quality), unless it is there, and trains it into --model_dir
+(default <root>/model) with `python -m gsjax_torch.cli.train`'s defaults
+plus --eval, evaluating the test views at each of --test_iterations; then
+renders the test views (`cli.render --skip_train`) and scores them
+(`cli.metrics`). As the JAX tool, it pre-sizes the run: --capacity (the
+CLI's flag; by default the scene's own), and the raster budgets the
+Trainer starts from, --max_instances and --max_rows (the JAX tool's
+262,144 and 131,072), which the Trainer grows as the scene needs.
 
 Writes the artifact of the repository's tools/quality_run.py to --out
 (default build/quality/quality_run.json), with its keys: the test PSNR
@@ -21,7 +25,9 @@ results.json and the artifact's path. A failed run still writes the
 artifact (`crashed` says why), then raises.
 
     python -m gsjax_torch.tools.quality_run [--iterations 2000] \
-        [--test_iterations 1000 2000] [--out build/quality/quality_run.json]
+        [--test_iterations 1000 2000] [--out build/quality/quality_run.json] \
+        [--scene_dir DIR] [--model_dir DIR] [--capacity N] \
+        [--max_instances 262144] [--max_rows 131072]
 """
 
 from __future__ import annotations
@@ -142,20 +148,34 @@ def artifact(trainer, iterations: int, wall: float | None, crashed: str | None,
     }
 
 
-def main(argv=None) -> int:
-    from gsjax_torch.cli import metrics as metrics_cli
-    from gsjax_torch.cli import render as render_cli
-    from gsjax_torch.cli import train as train_cli
-    from gsjax_torch.tools.common import require_card
-    from gsjax_torch.tools.synthetic_scene import generate
-
+def make_parser() -> argparse.ArgumentParser:
+    """The JAX tool's flags (tools/quality_run.py:28-40) and the port's
+    --root and --test_iterations."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--iterations", type=int, default=2000)
     parser.add_argument("--test_iterations", type=int, nargs="+", default=[1000, 2000])
     parser.add_argument("--root", default=os.path.join(ROOT, "build", "quality"),
-                        help="the scene (scene/) and the model (model/)")
+                        help="the scene (scene/) and the model (model/) by default")
+    parser.add_argument("--scene_dir", default=None, help="default <root>/scene")
+    parser.add_argument("--model_dir", default=None, help="default <root>/model")
     parser.add_argument("--out", default=None, help="default <root>/quality_run.json")
-    args = parser.parse_args(argv)
+    parser.add_argument("--capacity", type=int, default=None,
+                        help="the Gaussian buffers' starting capacity (default: the "
+                             "training CLI's)")
+    parser.add_argument("--max_instances", type=int, default=262_144)
+    parser.add_argument("--max_rows", type=int, default=131_072)
+    return parser
+
+
+def main(argv=None) -> int:
+    from gsjax_torch.cli import metrics as metrics_cli
+    from gsjax_torch.cli import render as render_cli
+    from gsjax_torch.cli import train as train_cli
+    from gsjax_torch.config import RasterConfig
+    from gsjax_torch.tools.common import require_card
+    from gsjax_torch.tools.synthetic_scene import generate
+
+    args = make_parser().parse_args(argv)
     require_card("quality_run")
     out_path = args.out or os.path.join(args.root, "quality_run.json")
     render_dir = os.path.join(os.path.dirname(os.path.abspath(out_path)), "quality_renders")
@@ -163,12 +183,13 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    scene = os.path.join(args.root, "scene")
+    scene = args.scene_dir or os.path.join(args.root, "scene")
     t0 = time.perf_counter()
     if not os.path.exists(os.path.join(scene, "points3d.ply")):
         generate(scene)
     scene_s = time.perf_counter() - t0
-    model = os.path.join(args.root, "model")
+    model = args.model_dir or os.path.join(args.root, "model")
+    capacity = [] if args.capacity is None else ["--capacity", str(args.capacity)]
     stdout = sys.stdout
     trainer = train_s = crashed = None
     t0 = time.perf_counter()
@@ -177,8 +198,9 @@ def main(argv=None) -> int:
             "-s", scene, "-m", model, "--eval", "--quiet",
             "--iterations", str(args.iterations),
             "--test_iterations", *map(str, args.test_iterations),
-            "--save_iterations", str(args.iterations),
-        ])
+            "--save_iterations", str(args.iterations), *capacity,
+        ], raster_cfg=RasterConfig(max_instances=args.max_instances,
+                                   max_rows=args.max_rows))
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         render_cli.main(["-m", model, "--iteration", str(args.iterations),

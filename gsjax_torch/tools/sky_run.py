@@ -12,7 +12,10 @@ distance-scaled threshold for the unbounded scene (train/densify.py): the
 shell must survive it.
 
     python -m gsjax_torch.tools.sky_run [--iterations 4000] [--sky 2000] \
-        [--out build/sky/sky_run.json]
+        [--out build/sky/sky_run.json] [--scene_dir build/sky/scene]
+
+The scene is written to --scene_dir (default <root>/scene, --root
+build/sky) unless it is there; the two models go under --root.
 
 Capacity 262,144, 32x32 tiles, budgets 1,048,576 / 524,288 (the trainer
 adapts them). Writes the JSON artifact and prints one JSON line: for
@@ -103,21 +106,28 @@ def run_one(scene_dir: str, model_dir: str, iterations: int, sky_n: int,
     }
 
 
-def main(argv=None) -> dict:
-    from gsjax_torch.tools.common import require_card
-    from gsjax_torch.tools.synthetic_scene import generate
-
+def make_parser() -> argparse.ArgumentParser:
+    """The JAX tool's flags (tools/sky_run.py:128-133) and the port's --root."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--iterations", type=int, default=4000)
     ap.add_argument("--sky", type=int, default=2000)
     ap.add_argument("--root", default=os.path.join(ROOT, "build", "sky"),
-                    help="the scene (scene/) and both models (sky_on/, sky_off/)")
+                    help="both models (sky_on/, sky_off/), and the scene (scene/) by "
+                         "default")
+    ap.add_argument("--scene_dir", default=None, help="default <root>/scene")
     ap.add_argument("--out", default=None, help="default <root>/sky_run.json")
     ap.add_argument("--max_instances", type=int, default=BUDGETS[0])
     ap.add_argument("--max_rows", type=int, default=BUDGETS[1])
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> dict:
+    from gsjax_torch.tools.common import require_card
+    from gsjax_torch.tools.synthetic_scene import generate
+
+    args = make_parser().parse_args(argv)
     require_card("sky_run")
-    scene_dir = os.path.join(args.root, "scene")
+    scene_dir = args.scene_dir or os.path.join(args.root, "scene")
     out_path = args.out or os.path.join(args.root, "sky_run.json")
     t0 = time.perf_counter()
     if not os.path.exists(os.path.join(scene_dir, "transforms_train.json")):

@@ -20,15 +20,23 @@ window runs the loop on the card too.
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import torch
 
 from gsjax_torch.config import OptimizationConfig, RasterConfig
 from gsjax_torch.core.cameras import Camera
 from gsjax_torch.model import PARAM_NAMES, GaussianAux, GaussianParams
-from gsjax_torch.render import kernels
 from gsjax_torch.render.api import render
+from gsjax_torch.render.graph import (  # noqa: F401  (the graphs' accounting, shared)
+    WARMUP_RUNS,
+    capture_graph,
+    captures,
+    count_replays,
+    drop_render_graphs,
+    executed_launches,
+    replayed_launch_counts,
+    reset_graph_counts,
+)
 from gsjax_torch.train.densify import add_densification_stats
 from gsjax_torch.train.loss import l1_loss, ssim
 from gsjax_torch.train.optimizer import AdamState, adam_update, make_lr_tree
@@ -227,42 +235,16 @@ def train_steps(
 # window `train_steps` replays on the card (the Trainer's are at most its
 # max_window, 50 by default).
 GRAPH_WINDOW = 1024
-# Eager steps on a copy of the state before a capture (torch's
-# whole-network capture recipe): they build the kernels, start autograd's
-# device threads and fill the allocator's cache.
-WARMUP_STEPS = 2
-
-# Kernel launches made by graph replays. render/kernels.py counts launches
-# on the host, where a wrapper calls its kernel; a capture records each
-# such launch once into the graph (counted there, though a capture runs
-# nothing) and a replay repeats them, so the launches of replays are the
-# capture's count times the replays.
-replayed_launch_counts = {name: 0 for name in kernels.KERNEL_NAMES}
-# One record per capture: its key's sizes, warm-up and capture ms, the
-# bytes its memory pool took and the launches it recorded.
-captures: list[dict] = []
 
 _GRAPHS: dict[tuple, "StepGraph"] = {}
 
 
-def reset_graph_counts() -> None:
-    for name in replayed_launch_counts:
-        replayed_launch_counts[name] = 0
-    captures.clear()
-
-
-def executed_launches() -> dict[str, int]:
-    """Kernel launches executed on the card since the counts were reset:
-    the host's count, less what captures recorded, plus the replays'."""
-    return {k: kernels.launch_counts[k] + replayed_launch_counts[k]
-            - sum(c["launches"][k] for c in captures) for k in kernels.KERNEL_NAMES}
-
-
 def drop_step_graphs() -> None:
-    """Forget every captured step (and free its memory pool): after a
-    budget change or a capacity growth, as gsjax's `_apply_budgets` drops
-    its compiled executables."""
+    """Forget every captured step and render (and free their memory
+    pools): after a budget change or a capacity growth, as gsjax's
+    `_apply_budgets` drops its compiled executables."""
     _GRAPHS.clear()
+    drop_render_graphs()
 
 
 def _bound_ptrs(state: TrainState, bank) -> tuple[int, ...]:
@@ -272,42 +254,16 @@ def _bound_ptrs(state: TrainState, bank) -> tuple[int, ...]:
 
 
 def capture_step(body, state: TrainState, record: dict):
-    """Capture body(state) once as a torch.cuda.CUDAGraph, torch's
-    whole-network recipe: WARMUP_STEPS eager runs of body on a copy of the
-    state on a side stream first, then the capture, which runs nothing.
-    Appends `record` with the warm-up and capture ms, the bytes the
-    graph's memory pool took and the launches it recorded to `captures`.
-    Returns (graph, {kernel: launches per replay}). A capture error
-    propagates."""
-    dev = state.params.device
-    t0 = time.perf_counter()
-    side = torch.cuda.Stream(device=dev)
-    side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side):
+    """Capture body(state) once (render/graph.py's capture_graph), warmed up
+    by WARMUP_RUNS eager runs of body on a copy of the state. Returns
+    (graph, {kernel: launches per replay}). A capture error propagates."""
+    def warm_up():
         scratch = clone_state(state)
-        for _ in range(WARMUP_STEPS):
+        for _ in range(WARMUP_RUNS):
             body(scratch)
-        del scratch
-    torch.cuda.current_stream(dev).wait_stream(side)
-    torch.cuda.synchronize(dev)
-    warmup_ms = (time.perf_counter() - t0) * 1e3
 
-    torch.cuda.empty_cache()
-    reserved = torch.cuda.memory_reserved(dev)
-    before = dict(kernels.launch_counts)
-    t0 = time.perf_counter()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        body(state)
-    torch.cuda.synchronize(dev)
-    capture_ms = (time.perf_counter() - t0) * 1e3
-    launches = {k: kernels.launch_counts[k] - before[k] for k in kernels.KERNEL_NAMES}
-    captures.append({
-        **record, "warmup_ms": warmup_ms, "capture_ms": capture_ms,
-        "pool_bytes": torch.cuda.memory_reserved(dev) - reserved,
-        "launches": dict(launches),
-    })
-    return graph, launches
+    return capture_graph(lambda: body(state), state.params.device,
+                         {"graph": "step", **record}, warm_up)
 
 
 def register_graph(key: tuple, state: TrainState, make):
@@ -391,8 +347,7 @@ class CapturedStep:
             if feed is not None:
                 feed(k)
             self.graph.replay()
-        for name, n in self.launches.items():
-            replayed_launch_counts[name] += n * w
+        count_replays(self.launches, w)
         return self.state, StepMetrics(**{k: v[:w].clone() for k, v in self.out.items()})
 
 

@@ -22,9 +22,13 @@ Torch specifics:
 * `debug_from` turns on torch.autograd.set_detect_anomaly (the
   reference's own flag), which a graph cannot capture: from then on the
   windows run their steps eagerly.
+* Renders (the viewer's frames, `render_view`, the held-out evaluation)
+  replay captured CUDA graphs on the card, as gsjax jits them
+  (render/graph.py), in a registry apart from the captured steps'; they
+  read the state's tensors without writing any. On the CPU they run
+  eagerly.
 * The viewer (`gui`, a gsjax_torch.viewer.NetworkGUI) is polled at the
-  top of each window, between graph replays: its frames render eagerly
-  and read the state's tensors without writing any.
+  top of each window, between graph replays.
 * With a `mesh` (a ("data", "tile") DeviceMesh, gsjax_torch.parallel)
   every rank runs this loop on its own replica of the state: each window
   runs the mesh-sharded step, one camera per data group (on a CUDA mesh
@@ -56,10 +60,9 @@ from gsjax_torch.config import (
     RasterConfig,
     pow2_budget,
 )
-from gsjax_torch.image_metrics import psnr as psnr_fn
 from gsjax_torch.model import PARAM_NAMES, GaussianAux, pad_gaussian_params
 from gsjax_torch.parallel.mesh import dim_size
-from gsjax_torch.render.api import render
+from gsjax_torch.render.graph import eval_views, render_replayed
 from gsjax_torch.train.checkpoint import load_checkpoint_extra, save_checkpoint
 from gsjax_torch.train.densify import densify_and_prune, reset_opacity
 from gsjax_torch.train.optimizer import AdamState, adam_init
@@ -224,16 +227,18 @@ class Trainer:
         cov3d_python: bool | None = None,
         fast: bool = False,
     ) -> torch.Tensor:
-        """One render through the public API (viewer, eval, TensorBoard).
-        The *_python flags select the standalone mirror math paths
-        (reference pipe.convert_SHs_python / compute_cov3D_python,
-        gaussian_renderer/__init__.py:57-82) and default to the
-        PipelineConfig's; fast=True renders with RasterConfig.fast_fwd
-        (inference only, within 4e-3 of exact; the viewer's frames)."""
+        """One render through the public API (viewer, eval, TensorBoard),
+        on the card a replay of the captured render of its key
+        (render/graph.py; gsjax jits it per key). The *_python flags select
+        the standalone mirror math paths (reference pipe.convert_SHs_python
+        / compute_cov3D_python, gaussian_renderer/__init__.py:57-82) and
+        default to the PipelineConfig's; fast=True renders with
+        RasterConfig.fast_fwd (inference only, within 4e-3 of exact; the
+        viewer's frames). The image belongs to the caller."""
         shs = self.pipe_cfg.convert_SHs_python if shs_python is None else shs_python
         cov = self.pipe_cfg.compute_cov3D_python if cov3d_python is None else cov3d_python
         cfg = dataclasses.replace(self.raster_cfg, fast_fwd=True) if fast else self.raster_cfg
-        return render(
+        return render_replayed(
             self.state.params,
             camera,
             active_sh_degree=self.active_sh_degree,
@@ -812,17 +817,17 @@ class Trainer:
             f"alive {prev} -> {n_alive}",
         )
 
-    @torch.no_grad()
     def _eval_bank(self, bank, idxs: list[int]) -> tuple[list[float], list[float]]:
         """Per-view (l1, psnr) of the clipped renders of views idxs of a
-        bank against their ground truths, read back in one transfer."""
-        l1s, psnrs = [], []
-        for i in idxs:
-            cam, gt = bank.pick(torch.tensor(i, device=self.device))
-            img = torch.clamp(self.render_view(cam), 0.0, 1.0)
-            l1s.append(torch.mean(torch.abs(img - gt)))
-            psnrs.append(psnr_fn(img, gt).mean())
-        both = torch.stack([torch.stack(l1s), torch.stack(psnrs)]).cpu()
+        bank against their ground truths, read back in one transfer (on
+        the card replays of one captured evaluation per key, gsjax's
+        `_eval_bank_fn`)."""
+        both = eval_views(
+            self.state.params, self.state.aux.alive, bank, idxs,
+            bg_color=self.background, active_sh_degree=self.active_sh_degree,
+            cfg=self.raster_cfg, convert_shs_outside=self.pipe_cfg.convert_SHs_python,
+            compute_cov3d_outside=self.pipe_cfg.compute_cov3D_python,
+        ).cpu()
         return both[0].tolist(), both[1].tolist()
 
     def _report_test(self, iteration: int, first_test: bool = False) -> None:

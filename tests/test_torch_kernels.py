@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the card:
 the render path's (render/kernels.py, tiles up to 64x64) and the profiling
 tools' (tools/kernels.py); the culled composite kernels against their
-twins without the cull, bit for bit.
+twins without the cull, bit for bit; the ablation probes against the
+kernels they launch as (blockout and replay_fwd bit for bit).
 
 Needs an NVIDIA GPU and nvcc: every test is marked `cuda` and skips
 without a card. This file imports no JAX, so on a machine without JAX it
@@ -325,6 +326,46 @@ def test_variant_matches_plain(card, tool_stream, name):
         _, mask = tool_kernels._chunk_heads(tool_stream.tile_start, geo["n_tiles"])
         np.testing.assert_allclose(got.numpy(), want.numpy(),
                                    atol=2e-3 * int(mask.sum(1).max()))
+
+
+@functools.lru_cache(maxsize=None)
+def _probe_stream(case):
+    """The composite's inputs for a 160x120 view of a CPU scene: 1500
+    Gaussians, or 12,000 for the dense case (tiles of several staging
+    batches)."""
+    tile = case.removesuffix("_dense")
+    tw, th = (int(v) for v in tile.split("x"))
+    params, aux = random_scene(12_000 if case.endswith("_dense") else 1500, seed=3,
+                               spread=1.5, device="cpu")
+    cam = look_at_origin_camera(W, H, device="cpu")
+    cfg = RasterConfig(tile_w=tw, tile_h=th, max_instances=1 << 16, max_rows=1 << 15)
+    return instance_stream(params, cam, cfg, aux.alive)
+
+
+@pytest.mark.parametrize("case", ["32x32", "16x16", "64x32", "32x32_dense"])
+def test_probes_take_apart_the_main_kernels(card, case):
+    """The ablation probes launch as the kernels that ship: blockout equals
+    composite_forward bit for bit, replay_fwd and fwd_nocond its red at
+    pixel 0 bit for bit, and bwd_nowrite the chunk-head sums of
+    composite_backward's d_mx on the same cotangent within 1e-6 of each
+    sum's magnitudes (the kernel sums them in another order)."""
+    stream = _probe_stream(case)
+    geo = stream.geometry
+    inst, ts = stream.inst.to(card), stream.tile_start.to(card)
+    color, trans = kernels.composite_forward(inst, ts, **geo)
+    b_color, b_trans = tool_kernels.blockout(inst, ts, **geo)
+    assert torch.equal(b_color.view(torch.int32), color.view(torch.int32))
+    assert torch.equal(b_trans[..., 0].view(torch.int32), trans.view(torch.int32))
+    for name in ("replay_fwd", "fwd_nocond"):
+        got = tool_kernels.variant(inst, ts, name, **geo).reshape(-1)
+        assert torch.equal(got.view(torch.int32), color[:, 0, 0].view(torch.int32)), name
+    cot = tool_kernels.bwd_nowrite_cot(geo["n_tiles"], geo["tile_w"] * geo["tile_h"], card)
+    grads = kernels.composite_backward(inst, ts, cot, **geo)
+    want = tool_kernels._chunk_head_sums(grads, ts, geo["n_tiles"])
+    mag = tool_kernels._chunk_head_sums(grads.abs(), ts, geo["n_tiles"])
+    got = tool_kernels.variant(inst, ts, "bwd_nowrite", **geo).reshape(-1)
+    assert bool((mag > 0).any())
+    assert bool(((got - want).abs() <= 1e-6 * mag).all())
 
 
 @pytest.mark.parametrize("variant", tool_kernels.OUTPATH_VARIANTS)

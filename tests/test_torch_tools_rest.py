@@ -470,3 +470,52 @@ def test_sky_run_evals_and_summary():
     assert sky_run.summarize({"sky_on": dict(on, shell_at_end={"n_far_shell": 0})}) == {
         "shell_survived_prune": False}
     assert sky_run.summarize({}) == {}
+
+
+# --- the JAX tools' flags ------------------------------------------------------------
+
+# The flags whose default each port tool keeps as the JAX tool's; the rest
+# (paths, iteration counts) keep the port's own defaults. --virtual is
+# bench_scaling's TPU-only flag.
+SAME_DEFAULT = {
+    "quality_run": ("--capacity", "--max_instances", "--max_rows"),
+    "bench_trained": ("--width", "--height", "--tile", "--strips", "--orbit", "--iters",
+                      "--max_instances"),
+    "sky_run": ("--iterations", "--sky", "--max_instances", "--max_rows"),
+    "bench_scaling": ("--tiles", "--width", "--height", "--n", "--iters", "--out"),
+}
+TPU_ONLY = ("--virtual",)
+
+
+def _jax_tool_flags(tool: str) -> dict:
+    """{option: default} of the JAX tool's add_argument calls, read from
+    its source (its parser is built inside its main)."""
+    import ast
+
+    flags = {}
+    for node in ast.walk(ast.parse((ROOT / "tools" / f"{tool}.py").read_text())):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", None) == "add_argument":
+            default = [kw.value for kw in node.keywords if kw.arg == "default"]
+            flags[node.args[0].value] = ast.literal_eval(default[0]) if default else None
+    return flags
+
+
+@pytest.mark.parametrize("tool", sorted(SAME_DEFAULT))
+def test_tool_takes_the_jax_tools_flags(tool):
+    """Every flag of the JAX tool parses in the port's tool, into the
+    option it names, and the pre-sizing and view flags keep its defaults."""
+    from gsjax_torch.tools import bench_trained
+
+    parser = {"quality_run": quality_run, "bench_trained": bench_trained,
+              "sky_run": sky_run, "bench_scaling": bench_scaling}[tool].make_parser()
+    flags = {k: v for k, v in _jax_tool_flags(tool).items() if k not in TPU_ONLY}
+    assert set(SAME_DEFAULT[tool]) <= set(flags)
+    values = {flag: "7" if d is None else f"{d}_x" if isinstance(d, str) else str(d + 1)
+              for flag, d in flags.items()}
+    parsed = parser.parse_args([a for kv in values.items() for a in kv])
+    defaults = parser.parse_args([])
+    for flag, value in values.items():
+        dest = parser._option_string_actions[flag].dest
+        assert str(getattr(parsed, dest)) == value, flag
+        if flag in SAME_DEFAULT[tool]:
+            assert getattr(defaults, dest) == flags[flag], flag
