@@ -793,10 +793,12 @@ def check_tool_kernels(torch, tool_kernels, stream, where):
 
 
 def probes_against_main(torch, tool_kernels, stream, where) -> dict:
-    """The ablation probes against the kernels they take apart, which they
-    launch as (tools/kernels.py), on one instance stream: blockout equals
-    composite_forward bit for bit, replay_fwd and fwd_nocond its red at
-    pixel 0 bit for bit, and bwd_nowrite the chunk-head sums of
+    """The probes against the kernels they take apart, which they launch as
+    (tools/kernels.py), on one instance stream: blockout equals
+    composite_forward bit for bit, outpath "ship" holds its colour and T
+    bit for bit in rows 0-3 and zeros in rows 4-7, outpath "notrans"
+    repeats bit for bit, replay_fwd and fwd_nocond give the forward's red
+    at pixel 0 bit for bit, and bwd_nowrite the chunk-head sums of
     composite_backward's d_mx on the same cotangent within 1e-6 of each
     sum's magnitudes (the kernel adds them in another order). Raises
     otherwise."""
@@ -809,6 +811,16 @@ def probes_against_main(torch, tool_kernels, stream, where) -> dict:
         out = {"blockout_bitwise": torch.equal(b_color.view(torch.int32),
                                                color.view(torch.int32))
                and torch.equal(b_trans[..., 0].view(torch.int32), trans.view(torch.int32))}
+        ship = tool_kernels.outpath(inst, ts, "ship", **geo)
+        out["outpath_ship_bitwise"] = (
+            torch.equal(ship[:, 0:3].transpose(1, 2).contiguous().view(torch.int32),
+                        color.view(torch.int32))
+            and torch.equal(ship[:, 3].contiguous().view(torch.int32),
+                            trans.view(torch.int32))
+            and not bool(ship[:, 4:].any()))
+        notrans = [tool_kernels.outpath(inst, ts, "notrans", **geo).view(torch.int32)
+                   for _ in range(2)]
+        out["outpath_notrans_repeats_bitwise"] = torch.equal(*notrans)
         red = color[:, 0, 0].view(torch.int32)
         for name in ("replay_fwd", "fwd_nocond"):
             got = tool_kernels.variant(inst, ts, name, **geo).reshape(-1)
@@ -959,7 +971,9 @@ def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
           n_live * 9 * 4 + ts.numel() * 4 + n_tiles * 8 * pix * 4,
           pairs * COMPOSITE_FLOP_PER_PAIR, variant="ship",
           call=lambda: tool_kernels.outpath(inst, ts, "ship", **geo),
-          notrans_ms=outpath["notrans"]["ms"])
+          notrans_ms=outpath["notrans"]["ms"],
+          ship_equals_composite_forward_bitwise=probes["outpath_ship_bitwise"],
+          notrans_repeats_bitwise=probes["outpath_notrans_repeats_bitwise"])
     entry("blockout", timed["blockout"]["ms"], timed["blockout"]["event_ms"],
           lambda: tool_kernels.blockout_plain(inst, ts, **geo),
           n_live * 9 * 4 + ts.numel() * 4 + n_tiles * pix * 16,
@@ -977,7 +991,8 @@ def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
                             max_abs_err=variant_errs[v]) for v in tool_kernels.VARIANTS},
           composite_forward_ms=timed["composite_forward"]["ms"],
           composite_backward_ms=timed["composite_backward"]["ms"],
-          probes_vs_main={k: v for k, v in probes.items() if k != "blockout_bitwise"})
+          probes_vs_main={k: v for k, v in probes.items()
+                          if not k.startswith(("blockout", "outpath"))})
     return out
 
 

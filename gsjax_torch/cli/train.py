@@ -17,8 +17,9 @@ COORDINATOR_ADDRESS / NUM_PROCESSES / PROCESS_ID protocol):
 The collectives run on NCCL for `--data_device cuda`, on gloo for `cpu`.
 Rank 0 alone writes the model directory, prints and serves the viewer.
 An in-process caller may pass main() the Trainer's starting RasterConfig
-(pre-sized budgets, as gsjax's tools/quality_run.py hands its Trainer);
-the command line has no such flag, as gsjax's has none."""
+(pre-sized budgets, as gsjax's tools/quality_run.py hands its Trainer)
+and the seed of the densify split noise (`split_seed`, default gsjax's
+0); the command line has no such flags, as gsjax's has none."""
 
 from __future__ import annotations
 
@@ -61,7 +62,7 @@ def prepare_output_and_logger(model_cfg: ModelConfig) -> tuple[ModelConfig, obje
     return model_cfg, tb_writer
 
 
-def main(argv=None, raster_cfg: RasterConfig | None = None) -> Trainer:
+def main(argv=None, raster_cfg: RasterConfig | None = None, split_seed: int = 0) -> Trainer:
     parser = make_train_parser()
     args = parser.parse_args(argv if argv is not None else sys.argv[1:])
     if args.orbax:
@@ -84,13 +85,13 @@ def main(argv=None, raster_cfg: RasterConfig | None = None) -> Trainer:
                 f"{n} -m gsjax_torch.cli.train ...")
         mesh = make_mesh(device_type, data=args.data_parallel, tile=args.tile_parallel)
     try:
-        return _train(args, model_cfg, opt_cfg, pipe_cfg, mesh, raster_cfg)
+        return _train(args, model_cfg, opt_cfg, pipe_cfg, mesh, raster_cfg, split_seed)
     finally:
         if own_group:
             dist.destroy_process_group()
 
 
-def _train(args, model_cfg, opt_cfg, pipe_cfg, mesh, raster_cfg) -> Trainer:
+def _train(args, model_cfg, opt_cfg, pipe_cfg, mesh, raster_cfg, split_seed) -> Trainer:
     is_main = mesh is None or mesh.get_rank() == 0
     save_iterations = list(args.save_iterations) + [opt_cfg.iterations]
     if is_main:
@@ -136,6 +137,7 @@ def _train(args, model_cfg, opt_cfg, pipe_cfg, mesh, raster_cfg) -> Trainer:
             quiet=args.quiet,
             profile_dir=args.profile_dir,
             mesh=mesh,
+            split_seed=split_seed,
         )
         trainer.train(
             test_iterations=set(args.test_iterations),

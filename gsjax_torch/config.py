@@ -150,3 +150,10 @@ def pow2_budget(peak: int, headroom: float = 1.3) -> int:
     """Smallest power-of-two budget holding peak * headroom."""
     need = max(int(peak * headroom), MIN_RASTER_BUDGET)
     return 1 << (need - 1).bit_length()
+
+
+def padded_image_shape(height: int, width: int, tile: int) -> tuple[int, int]:
+    """Image shape rounded up to a whole number of tiles."""
+    pad_h = (height + tile - 1) // tile * tile
+    pad_w = (width + tile - 1) // tile * tile
+    return pad_h, pad_w

@@ -18,11 +18,18 @@
 // Design: each probe is the main path's own walk (composite_walk.cuh:
 // gsjt::forward_tile, gsjt::backward_tile) instantiated in another mode,
 // so a probe differs from the kernel it ablates only in what it drops.
-// The ablations launch as the kernels that ship: blockout and the forward
-// variants take the main forward's launch (gsjt::forward_launch: the warp
-// map, one block per strip, the cull from 512-pixel tiles on), the
-// backward variants the main backward's (four pixels per thread, the warp
-// map, the cull):
+// The probes launch as the kernels that ship: outpath, blockout and the
+// forward variants take the main forward's launch (gsjt::forward_launch:
+// the warp map, one block per strip, the cull from 512-pixel tiles on),
+// the backward variants the main backward's (four pixels per thread, the
+// warp map, the cull):
+//   outpath ship     the forward's colour and T as rows 0-3 of a (T, 8,
+//                    PIX) block, rows 4-7 zero: the forward's bits
+//   outpath notrans  the same walk, one sum a tile: each strip's block
+//                    sums its pixels (gsjt::block_sum) into a partial; the
+//                    tile's last block to arrive (a fence, then an atomic
+//                    count) adds the partials in strip order, so every
+//                    call gives the same bits
 //   blockout         the forward with pixel-major outputs: the forward
 //                    kernel itself, bit for bit. The TPU grid's dimension
 //                    semantics have no counterpart here.
@@ -45,8 +52,6 @@
 // them. An ablation whose output reads one value keeps every dropped
 // result live (gsjt::keep_live, with a run-time zero), so nvcc cannot
 // delete the work it stands for.
-// outpath keeps the walk it was first measured on, the row-major warp map
-// without the cull or strips.
 // The twins are the main kernels with the cull off: the same warp map,
 // arguments and outputs, every staged row walked by every warp. The main
 // kernels must equal them bit for bit (chip_smoke.py, the card tests).
@@ -60,13 +65,31 @@ namespace {
 using gsjt::kChunk;
 using gsjt::kRowFloats;
 
-template <int PPT, int kMode>
-__global__ void __launch_bounds__(1024)
+// At the main forward's launch bounds. notrans: partials (n_tiles *
+// strips) f32 and arrivals (n_tiles) i32, zero on entry.
+template <int PPT, int kMode, bool kCull>
+__global__ void __launch_bounds__(1024, PPT == 1 ? 2 : 1)
 outpath_kernel(const float* __restrict__ inst,
                const int* __restrict__ tile_start, float* __restrict__ out,
-               int tiles_x, int tile_w, int tile_h) {
-  gsjt::forward_tile<PPT, kMode>(inst, tile_start, out, nullptr, tiles_x,
-                                 tile_w, tile_h, 0, 1, 0.0f);
+               float* partials, int* __restrict__ arrivals, int tiles_x,
+               int tile_w, int tile_h, int warp_w, int strips) {
+  gsjt::forward_tile<PPT, kMode, kCull>(inst, tile_start, out, partials,
+                                        tiles_x, tile_w, tile_h, warp_w,
+                                        strips, 0.0f);
+  if constexpr (kMode == gsjt::kOutNotrans) {
+    if (threadIdx.x == 0) {  // the thread that stored this strip's partial
+      const int tile = blockIdx.x / strips;
+      __threadfence();
+      if (atomicAdd(arrivals + tile, 1) == strips - 1) {
+        __threadfence();
+        const volatile float* part =
+            partials + static_cast<size_t>(tile) * strips;
+        float total = 0.0f;
+        for (int s = 0; s < strips; ++s) total += part[s];
+        out[static_cast<size_t>(tile) * 8 * tile_w * tile_h] = total;
+      }
+    }
+  }
 }
 
 // composite_forward.cu's kernel under the probe's name.
@@ -194,25 +217,48 @@ enum Variant : int {
   kBwdNoShfl = 5,
 };
 
-// inst: (P, 16) f32 rows; tile_start: (n_tiles + 1) i32;
-// out: (n_tiles, 8, tile_w * tile_h) f32. notrans 0 writes the forward's
-// rows [r, g, b, T, 0, 0, 0, 0], 1 its block sums.
+namespace {
+
+template <int P, int kMode>
+void launch_outpath(const gsjt::ForwardLaunch& l, int n_tiles, cudaStream_t s,
+                    const float* inst, const int* tile_start, float* out,
+                    float* partials, int* arrivals, int tiles_x, int tile_w,
+                    int tile_h) {
+  if (l.cull) {
+    outpath_kernel<P, kMode, true><<<n_tiles * l.strips, l.threads, l.smem, s>>>(
+        inst, tile_start, out, partials, arrivals, tiles_x, tile_w, tile_h,
+        l.warp_w, l.strips);
+  } else {
+    outpath_kernel<P, kMode, false><<<n_tiles * l.strips, l.threads, l.smem, s>>>(
+        inst, tile_start, out, partials, arrivals, tiles_x, tile_w, tile_h,
+        l.warp_w, l.strips);
+  }
+}
+
+}  // namespace
+
+// As gsjt_composite_forward, at its launch. inst: (P, 16) f32 rows;
+// tile_start: (n_tiles + 1) i32; out: (n_tiles, 8, tile_w * tile_h) f32.
+// notrans 0 writes the forward's rows [r, g, b, T, 0, 0, 0, 0], 1 the
+// tiles' sums at [t, 0, 0] and zeros elsewhere; notrans needs partials,
+// (n_tiles * gsjt::kMaxStrips) f32 scratch, and arrivals, (n_tiles) i32
+// zeros, which ship ignores.
 extern "C" int gsjt_outpath(const float* inst, const int* tile_start,
-                            float* out, int n_tiles, int tiles_x, int tile_w,
-                            int tile_h, int notrans, void* stream) {
-  const int pix = tile_w * tile_h;
-  const int ppt = gsjt::pixels_per_thread(pix);
-  const int threads = gsjt::block_threads(pix, ppt);
-  const size_t smem = gsjt::forward_smem(threads, false);
+                            float* out, float* partials, int* arrivals,
+                            int n_tiles, int tiles_x, int tile_w, int tile_h,
+                            int notrans, void* stream) {
+  const gsjt::ForwardLaunch l = gsjt::forward_launch(tile_w, tile_h);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return gsjt::launch_with_ppt(ppt, [&](auto kPpt) {
+  return gsjt::launch_with_ppt(l.ppt, [&](auto kPpt) {
     constexpr int P = decltype(kPpt)::value;
     if (notrans) {
-      outpath_kernel<P, gsjt::kOutNotrans><<<n_tiles, threads, smem, s>>>(
-          inst, tile_start, out, tiles_x, tile_w, tile_h);
+      launch_outpath<P, gsjt::kOutNotrans>(l, n_tiles, s, inst, tile_start, out,
+                                           partials, arrivals, tiles_x, tile_w,
+                                           tile_h);
     } else {
-      outpath_kernel<P, gsjt::kOutShip><<<n_tiles, threads, smem, s>>>(
-          inst, tile_start, out, tiles_x, tile_w, tile_h);
+      launch_outpath<P, gsjt::kOutShip>(l, n_tiles, s, inst, tile_start, out,
+                                        partials, arrivals, tiles_x, tile_w,
+                                        tile_h);
     }
   });
 }

@@ -22,8 +22,8 @@
 // step through reference arguments compiled to a walk that nvcc did not
 // unroll, ~18 % slower in the forward and ~16 % in the backward (PERF.md).
 //
-// Tiles: one block per tile (the main forward and its twin: one per strip
-// of a tile, tile_strips). A tile of up to 1024 pixels takes one thread
+// Tiles: one block per tile (the main forward, its twin and the forward
+// probes: one per strip of a tile, tile_strips). A tile of up to 1024 pixels takes one thread
 // per pixel; a larger one, up to kMaxPixelsPerThread * 1024, gives each
 // thread PPT pixels, held in register arrays that the unrolled loops index
 // with constants. PPT is a template parameter, so the one-pixel kernels
@@ -97,10 +97,9 @@ constexpr int kMinStripPixels = 256;
 // (composite_forward.cu says why).
 constexpr int kCullMinPixels = 512;
 
-// The warp map of the main kernels, their twins and the ablation probes:
-// kWarpW when kWarpW x (32 / kWarpW) blocks tile a tile_w x tile_h tile
-// exactly, else 0, the row-major map p = v (a warp is 32 consecutive
-// pixels: the outpath probes' map).
+// The warp map of the main kernels, their twins and the probes: kWarpW
+// when kWarpW x (32 / kWarpW) blocks tile a tile_w x tile_h tile exactly,
+// else 0, the row-major map p = v (a warp is 32 consecutive pixels).
 inline int warp_map(int tile_w, int tile_h) {
   return tile_w % kWarpW == 0 && tile_h % (32 / kWarpW) == 0 ? kWarpW : 0;
 }
@@ -313,7 +312,8 @@ enum ForwardMode : int {
   kForward = 0,  // the exact forward: color (T, PIX, 3) and T (T, PIX)
   kOutShip,      // the exact forward as rows [r, g, b, T, 0, 0, 0, 0] of a
                  //   (T, 8, PIX) block
-  kOutNotrans,   // a (T, 8, PIX) block of zeros, [t, 0, 0] =
+  kOutNotrans,   // a (T, 8, PIX) block of zeros but [t, 0, 0], which the
+                 //   caller writes: out_t[b] = block b's strip's
                  //   sum_pix (r + g + b) + sum_pix T
   kReplay,       // out[t] = the exact forward's red at pixel 0
   kNoCond,       // out[t] = red at pixel 0 of the walk with no stop: every
@@ -325,8 +325,8 @@ enum ForwardMode : int {
 
 // The forward walk of one strip of a tile over the tile's range of the
 // depth-sorted instance rows inst (P, 16). Block b takes strip b % strips
-// (tile_h / strips rows of the tile) of tile b / strips; the outpath
-// probes take whole tiles (strips = 1). The block stages the range through shared
+// (tile_h / strips rows of the tile) of tile b / strips; a strip writes
+// its own pixels of every output. The block stages the range through shared
 // memory (dynamic, forward_smem bytes) in batches of blockDim.x rows,
 // three loads per row, one row per thread; then every thread walks the
 // batch for each of its pixels. The block leaves once every pixel is done
@@ -343,8 +343,6 @@ __device__ __forceinline__ void forward_tile(
     float* __restrict__ out, float* __restrict__ out_t, int tiles_x,
     int tile_w, int tile_h, int warp_w, int strips, float keep) {
   constexpr bool kStops = kMode != kNoCond && kMode != kNoDep;
-  static_assert(!kCull || (kMode != kOutShip && kMode != kOutNotrans),
-                "the outpath probes walk without the cull");
   extern __shared__ float4 smem[];
   __shared__ float4 s_rect[kCull ? kMaxThreads / 32 * PPT : 1];
   const int batch = blockDim.x;
@@ -545,7 +543,6 @@ __device__ __forceinline__ void forward_tile(
       }
     }
   } else if constexpr (kMode == kOutShip || kMode == kOutNotrans) {
-    float total = 0.0f;
     if constexpr (kMode == kOutNotrans) {
       float s_color = 0.0f, s_t = 0.0f;
 #pragma unroll
@@ -556,9 +553,14 @@ __device__ __forceinline__ void forward_tile(
         }
       }
       s_color = block_sum(s_color);
-      total = s_color + block_sum(s_t);
+      const float part = s_color + block_sum(s_t);
+      if (threadIdx.x == 0) out_t[blockIdx.x] = part;
     }
-    float* block = out + 8 * tile_pix;
+    // Row r of tile t is PIX floats long; the strip's pixels start at
+    // strip * pix in it, as in the (T, PIX) outputs.
+    const int tile_area = tile_w * tile_h;
+    float* block = out + static_cast<size_t>(tile) * 8 * tile_area +
+                   static_cast<size_t>(strip) * pix;
 #pragma unroll
     for (int i = 0; i < PPT; ++i) {
       const int v = threadIdx.x + i * batch;
@@ -570,11 +572,13 @@ __device__ __forceinline__ void forward_tile(
           rows[1] = cg[i];
           rows[2] = cbl[i];
           rows[3] = T[i];
-        } else if (p == 0) {
-          rows[0] = total;
         }
 #pragma unroll
-        for (int r = 0; r < 8; ++r) block[r * pix + p] = rows[r];
+        for (int r = 0; r < 8; ++r) {
+          // notrans: [t, 0, 0] is the caller's, once every strip is summed.
+          if (kMode == kOutNotrans && r == 0 && strip == 0 && p == 0) continue;
+          block[static_cast<size_t>(r) * tile_area + p] = rows[r];
+        }
       }
     }
   } else {

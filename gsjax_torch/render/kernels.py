@@ -165,7 +165,7 @@ def library() -> ctypes.CDLL:
         lib.gsjt_segment_sum.argtypes = [p, p, p, i, p]
         # The profiling tools' kernels (gsjax_torch/tools/kernels.py).
         lib.gsjt_row_gather.argtypes = [p, p, i, p, i, i, p]
-        lib.gsjt_outpath.argtypes = [p, p, p, i, i, i, i, i, p]
+        lib.gsjt_outpath.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.gsjt_blockout.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gsjt_variant.argtypes = [p, i, p, p, p, i, i, i, i, i, ctypes.c_float, p]
         lib.gsjt_composite_forward_nocull.argtypes = [p, p, p, p, i, i, i, i, p]

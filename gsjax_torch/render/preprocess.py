@@ -100,6 +100,16 @@ def compute_cov3d_elems(
     return c_xx, c_xy, c_xz, c_yy, c_yz, c_zz
 
 
+def compute_cov2d(
+    cov3d6: torch.Tensor, p_view: torch.Tensor, camera: Camera
+) -> torch.Tensor:
+    """EWA projection of [N,6] 3D covariances (xx, xy, xz, yy, yz, zz) at
+    the view-space points p_view [N,3] to screen space: [N,3] = (cov_xx,
+    cov_xy, cov_yy), dilated by +0.3 on the diagonal, as the CUDA
+    rasterizer's computeCov2D."""
+    return _cov2d_from_elems(tuple(cov3d6[:, i] for i in range(6)), p_view, camera)
+
+
 def _cov2d_from_elems(
     elems: tuple[torch.Tensor, ...], p_view: torch.Tensor, camera: Camera
 ) -> torch.Tensor:

@@ -20,12 +20,12 @@ counterpart (csrc/composite_probes.cu):
 
 The three composite probes are the main path's walks (csrc/composite_walk.cuh)
 with one part taken out, so each is held to its plain version here and
-times its part on the card. blockout and the ablation variants launch as
-the kernels that ship (the forward's warp map, strips and cull; the
-backward's four pixels per thread, warp map and cull), so each ablation
-takes apart the kernel the render path runs: blockout is the forward bit
-for bit, replay_fwd its red at pixel 0 bit for bit. outpath keeps the
-walk it was first measured on (row-major warps, no cull, whole tiles).
+times its part on the card. They launch as the kernels that ship (the
+forward's warp map, strips and cull; the backward's four pixels per
+thread, warp map and cull), so each takes apart the kernel the render path
+runs: outpath "ship" holds the forward's colour and T bit for bit,
+blockout is the forward bit for bit, replay_fwd its red at pixel 0 bit
+for bit.
 Notation: tile t has the stream range
 [i0, i1) = [tile_start[t], tile_start[t+1]); its chunks are the 128-row
 blocks c0 = i0 // 128 ... c0 + n - 1 that meet the range (n = 0 for an
@@ -52,6 +52,9 @@ launch_counts = {name: 0 for name in KERNEL_NAMES}
 
 GATHER_WIDTHS = (1, 8, 16)
 OUTPATH_VARIANTS = ("ship", "notrans")
+# The forward's most strips a tile (csrc/composite_walk.cuh kMaxStrips):
+# outpath "notrans" keeps a partial sum per strip.
+MAX_STRIPS = 4
 SEMANTICS = ("arbitrary", "parallel")
 # The ablation tool's variants and the port's bwd_noshfl; any other name
 # is the backward without its write, as in the tool's fall-through
@@ -153,7 +156,8 @@ def outpath(
     block, the TPU forward's transposed output layout. "ship": rows 0-2 the
     premultiplied color, row 3 the transmittance, rows 4-7 zero.
     "notrans": the block is zero but [t, 0, 0] = sum_pix (r + g + b) +
-    sum_pix T, the same writes without the layout work."""
+    sum_pix T, the same writes without the layout work; on the card the
+    tile's strips' sums add in strip order, the same bits on every call."""
     if variant not in OUTPATH_VARIANTS:
         raise ValueError(f"outpath: variant {variant!r} not in {OUTPATH_VARIANTS}")
     geo = _geometry(n_tiles, tiles_x, tile_w, tile_h)
@@ -164,8 +168,14 @@ def outpath(
     out = torch.empty((n_tiles, 8, pix), dtype=torch.float32, device=inst.device)
     if n_tiles == 0:
         return out
+    scratch = (0, 0)  # null: "ship" takes no scratch
+    if variant == "notrans":
+        partials = torch.empty(n_tiles * MAX_STRIPS, dtype=torch.float32,
+                               device=inst.device)
+        arrivals = torch.zeros(n_tiles, dtype=torch.int32, device=inst.device)
+        scratch = (partials.data_ptr(), arrivals.data_ptr())
     err = library().gsjt_outpath(
-        inst.data_ptr(), tile_start.data_ptr(), out.data_ptr(), n_tiles,
+        inst.data_ptr(), tile_start.data_ptr(), out.data_ptr(), *scratch, n_tiles,
         tiles_x, tile_w, tile_h, int(variant == "notrans"), current_stream(),
     )
     _check("outpath", err)

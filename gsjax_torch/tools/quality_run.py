@@ -10,6 +10,8 @@ renders the test views (`cli.render --skip_train`) and scores them
 CLI's flag; by default the scene's own), and the raster budgets the
 Trainer starts from, --max_instances and --max_rows (the JAX tool's
 262,144 and 131,072), which the Trainer grows as the scene needs.
+--split_seed seeds the densify split noise (default 0, the training
+CLI's), so that runs can tell a draw of that noise from a fault.
 
 Writes the artifact of the repository's tools/quality_run.py to --out
 (default build/quality/quality_run.json), with its keys: the test PSNR
@@ -27,7 +29,7 @@ artifact (`crashed` says why), then raises.
     python -m gsjax_torch.tools.quality_run [--iterations 2000] \
         [--test_iterations 1000 2000] [--out build/quality/quality_run.json] \
         [--scene_dir DIR] [--model_dir DIR] [--capacity N] \
-        [--max_instances 262144] [--max_rows 131072]
+        [--max_instances 262144] [--max_rows 131072] [--split_seed 0]
 """
 
 from __future__ import annotations
@@ -164,6 +166,8 @@ def make_parser() -> argparse.ArgumentParser:
                              "training CLI's)")
     parser.add_argument("--max_instances", type=int, default=262_144)
     parser.add_argument("--max_rows", type=int, default=131_072)
+    parser.add_argument("--split_seed", type=int, default=0,
+                        help="seed of the densify split noise (the training CLI's 0)")
     return parser
 
 
@@ -200,7 +204,8 @@ def main(argv=None) -> int:
             "--test_iterations", *map(str, args.test_iterations),
             "--save_iterations", str(args.iterations), *capacity,
         ], raster_cfg=RasterConfig(max_instances=args.max_instances,
-                                   max_rows=args.max_rows))
+                                   max_rows=args.max_rows),
+            split_seed=args.split_seed)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
         render_cli.main(["-m", model, "--iteration", str(args.iterations),
@@ -220,7 +225,8 @@ def main(argv=None) -> int:
         results = json.load(f)[f"ours_{args.iterations}"]
     line = {
         "tool": "quality_run", "card": smi, "device": torch.cuda.get_device_name(0),
-        "iterations": args.iterations, "scene_seconds": scene_s,
+        "iterations": args.iterations, "split_seed": args.split_seed,
+        "scene_seconds": scene_s,
         "train_wall_s": train_s,
         "evals": [e for e in trainer.events if "eval" in e],
         "densify": [e for e in trainer.events if "densify" in e],

@@ -137,6 +137,7 @@ class Trainer:
         profile_dir: str | None = None,
         mesh=None,
         use_orbax: bool = False,
+        split_seed: int = 0,
     ):
         if use_orbax or (start_checkpoint and os.path.isdir(start_checkpoint)):
             raise NotImplementedError(
@@ -203,8 +204,9 @@ class Trainer:
         self._budget_quiet_peaks = (0, 0)
         self._last_peaks = (0, 0)
         self._last_alive = 0
-        # The densify split noise's source (gsjax: jax.random.PRNGKey(0)).
-        self._generator = torch.Generator(device=dev).manual_seed(0)
+        # The densify split noise's source (gsjax: jax.random.PRNGKey(0));
+        # split_seed picks another draw of it (0 is gsjax's seed).
+        self._generator = torch.Generator(device=dev).manual_seed(split_seed)
         if restored_extra:
             self._restore_host_state(restored_extra)
         # Captured steps of another state or configuration are stale.

@@ -2,11 +2,14 @@
 jax, flax or gsjax; it imports, renders and takes a training step with JAX
 made unimportable; and
 its entry points default to CUDA and raise without it rather than fall
-back to the CPU."""
+back to the CPU. Its packages re-export gsjax's package-level names, and
+importing them builds and loads no kernel library and imports neither the
+mesh, the viewer nor the tools."""
 
 from __future__ import annotations
 
 import ast
+import importlib
 import os
 import pathlib
 import subprocess
@@ -71,6 +74,57 @@ def test_renders_on_cpu_with_jax_unimportable():
         "assert bool(torch.isfinite(m.loss)) and int(st.step) == 2\n"
         "assert not any(k.split('.')[0] in ('jax', 'flax', 'gsjax')\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")
+    res = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def _gsjax_exports(package: str) -> list[str]:
+    """The names gsjax's package file exports, read from its source: its
+    `__all__`, or with none (gsjax.train) the names it imports."""
+    tree = ast.parse((ROOT / "gsjax" / package / "__init__.py").read_text())
+    for node in tree.body:
+        if isinstance(node, ast.Assign) and [t.id for t in node.targets] == ["__all__"]:
+            return ast.literal_eval(node.value)
+    return [a.asname or a.name for node in tree.body if isinstance(node, ast.ImportFrom)
+            for a in node.names]
+
+
+@pytest.mark.parametrize("package", ["", "core", "render", "train"])
+def test_packages_export_gsjax_names(package):
+    """Every name of gsjax's package `__all__` (and `__version__`) resolves
+    in the port's package to the port's own object, under the same
+    `__all__`."""
+    mod = importlib.import_module(".".join(filter(None, ("gsjax_torch", package))))
+    names = _gsjax_exports(package)
+    assert len(names) >= 4 and mod.__all__ == names
+    for name in names:
+        assert getattr(mod, name).__module__.startswith("gsjax_torch."), name
+    if not package:
+        gsjax_init = (ROOT / "gsjax" / "__init__.py").read_text()
+        assert f'__version__ = "{mod.__version__}"' in gsjax_init
+
+
+def test_package_imports_load_no_kernels():
+    """Importing the four packages (with JAX unimportable) builds and loads
+    no CUDA library and imports no mesh, viewer or tools module."""
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'gsjax'): sys.modules[m] = None\n"
+        "import gsjax_torch, gsjax_torch.core, gsjax_torch.render, gsjax_torch.train\n"
+        "from gsjax_torch import RasterConfig\n"
+        "from gsjax_torch.render import kernels\n"
+        "assert kernels._lib is None\n"
+        "maps = open('/proc/self/maps').read()\n"
+        "assert kernels.LIB_NAME not in maps and 'libcuda' not in maps\n"
+        "bad = sorted(k for k in sys.modules if k.startswith(tuple(\n"
+        "    'gsjax_torch.' + p for p in ('parallel', 'viewer', 'tools'))))\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=str(ROOT), OMP_NUM_THREADS="1")

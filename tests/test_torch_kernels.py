@@ -344,8 +344,11 @@ def _probe_stream(case):
 
 @pytest.mark.parametrize("case", ["32x32", "16x16", "64x32", "32x32_dense"])
 def test_probes_take_apart_the_main_kernels(card, case):
-    """The ablation probes launch as the kernels that ship: blockout equals
-    composite_forward bit for bit, replay_fwd and fwd_nocond its red at
+    """The probes launch as the kernels that ship: blockout equals
+    composite_forward bit for bit, outpath "ship" holds its colour and T
+    bit for bit in rows 0-3 and zeros in rows 4-7, outpath "notrans" is
+    within rtol 1e-5 of its plain version (zero but [t, 0, 0]) and repeats
+    bit for bit, replay_fwd and fwd_nocond give the forward's red at
     pixel 0 bit for bit, and bwd_nowrite the chunk-head sums of
     composite_backward's d_mx on the same cotangent within 1e-6 of each
     sum's magnitudes (the kernel sums them in another order)."""
@@ -356,6 +359,15 @@ def test_probes_take_apart_the_main_kernels(card, case):
     b_color, b_trans = tool_kernels.blockout(inst, ts, **geo)
     assert torch.equal(b_color.view(torch.int32), color.view(torch.int32))
     assert torch.equal(b_trans[..., 0].view(torch.int32), trans.view(torch.int32))
+    ship = tool_kernels.outpath(inst, ts, "ship", **geo)
+    assert torch.equal(ship[:, 0:3].transpose(1, 2).contiguous().view(torch.int32),
+                       color.view(torch.int32))
+    assert torch.equal(ship[:, 3].contiguous().view(torch.int32), trans.view(torch.int32))
+    assert not bool(ship[:, 4:].any())
+    notrans = [tool_kernels.outpath(inst, ts, "notrans", **geo) for _ in range(2)]
+    assert torch.equal(notrans[0].view(torch.int32), notrans[1].view(torch.int32))
+    want = tool_kernels.outpath_plain(stream.inst, stream.tile_start, "notrans", **geo)
+    np.testing.assert_allclose(notrans[0].cpu().numpy(), want.numpy(), rtol=1e-5, atol=0)
     for name in ("replay_fwd", "fwd_nocond"):
         got = tool_kernels.variant(inst, ts, name, **geo).reshape(-1)
         assert torch.equal(got.view(torch.int32), color[:, 0, 0].view(torch.int32)), name
@@ -378,6 +390,8 @@ def test_outpath_and_blockout_match_plain(card, tool_stream, variant):
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=2e-3)
     else:
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5, atol=0)
+        again = tool_kernels.outpath(inst.to(card), ts.to(card), variant, **geo).cpu()
+        assert torch.equal(again.view(torch.int32), got.view(torch.int32))
     for want_x, got_x in zip(tool_kernels.blockout_plain(inst, ts, **geo),
                              tool_kernels.blockout(inst.to(card), ts.to(card), **geo)):
         np.testing.assert_allclose(got_x.cpu().numpy(), want_x.numpy(), atol=2e-3)

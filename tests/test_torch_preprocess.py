@@ -6,6 +6,8 @@ cancellation (the conic's off-diagonal)."""
 
 from __future__ import annotations
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,11 +15,16 @@ import torch
 
 import gsjax.render.api as japi
 import gsjax_torch.render.api as tapi
-import gsjax_torch.render.preprocess as tpre
+from gsjax.config import padded_image_shape as jpadded_image_shape
 from gsjax.core.transforms import build_covariance
+from gsjax.render.preprocess import compute_cov2d as jcompute_cov2d
 from gsjax.render.preprocess import preprocess as jax_preprocess
+from gsjax_torch.config import padded_image_shape
 from tests.scene_utils import look_at_origin_camera, orbit_camera, random_scene
 from tests.torch_parity import n, t, to_torch_camera, to_torch_params
+
+# The module: the package's name `preprocess` is the function, as gsjax's.
+tpre = importlib.import_module("gsjax_torch.render.preprocess")
 
 torch.set_num_threads(1)
 W, H = 64, 48
@@ -106,3 +113,26 @@ def test_mark_visible_matches_gsjax(scene):
         n(tapi.mark_visible(tparams.xyz, to_torch_camera(cam))),
         np.asarray(japi.mark_visible(jparams.xyz, cam)),
     )
+
+
+def test_compute_cov2d_matches_gsjax(scene):
+    """The public EWA projection on the scene's covariances at seeded
+    view-space points, some far enough off axis that the frustum clamp
+    acts."""
+    jparams, _, _ = scene
+    cam = look_at_origin_camera(W, H)
+    cov = np.asarray(build_covariance(jparams.get_scaling(), 1.0, jparams.rotation))
+    rng = np.random.default_rng(2)
+    z = rng.uniform(0.3, 5.0, len(cov))
+    p_view = np.stack([rng.uniform(-2, 2, len(cov)) * z, rng.uniform(-2, 2, len(cov)) * z,
+                       z], axis=1).astype(np.float32)
+    want = np.asarray(jcompute_cov2d(jnp.asarray(cov), jnp.asarray(p_view), cam))
+    got = tpre.compute_cov2d(t(cov), t(p_view), to_torch_camera(cam))
+    assert got.shape == (len(cov), 3) and got.dtype == torch.float32
+    np.testing.assert_allclose(n(got), want, rtol=1e-5, atol=1e-7)
+
+
+@pytest.mark.parametrize("shape", [(48, 64, 16), (1080, 1920, 16), (1080, 1920, 32),
+                                   (400, 400, 64), (1, 1, 8), (33, 17, 8)])
+def test_padded_image_shape_matches_gsjax(shape):
+    assert padded_image_shape(*shape) == jpadded_image_shape(*shape)

@@ -519,3 +519,11 @@ def test_tool_takes_the_jax_tools_flags(tool):
         assert str(getattr(parsed, dest)) == value, flag
         if flag in SAME_DEFAULT[tool]:
             assert getattr(defaults, dest) == flags[flag], flag
+
+
+def test_quality_run_split_seed_parses():
+    """--split_seed, the port's own flag, seeds the densify split noise and
+    defaults to the training CLI's 0."""
+    parser = quality_run.make_parser()
+    assert parser.parse_args([]).split_seed == 0
+    assert parser.parse_args(["--split_seed", "2"]).split_seed == 2

@@ -165,6 +165,18 @@ def test_train_step_matches_gsjax():
     steps taken first and carried across (the first Adam step moves every
     parameter by +-lr whatever the gradient's size, so a near-zero gradient
     whose sign differs between the frameworks would move it by 2 lr)."""
+    _step_against_gsjax(reset=False)
+
+
+def test_train_step_after_opacity_reset_matches_gsjax():
+    """As test_train_step_matches_gsjax, from the carried state after
+    gsjax's opacity reset (opacity clamped to 0.01, its Adam moments
+    zeroed): the step that follows a reset, where the trainers' quality
+    curves part (ROADMAP F3), is held to the same tolerances."""
+    _step_against_gsjax(reset=True)
+
+
+def _step_against_gsjax(reset: bool) -> None:
     jparams, jaux = random_scene(200, seed=0)
     cam = look_at_origin_camera(W, H)
     rng = np.random.default_rng(1)
@@ -180,6 +192,9 @@ def test_train_step_matches_gsjax():
               raster_cfg=jcfg, spatial_lr_scale=SPATIAL_LR_SCALE)
     for _ in range(2):
         jstate, _ = jstep.train_step(jstate, bank, jnp.int32(0), jnp.asarray(bg), **kw)
+    if reset:
+        params, opt = jdensify.reset_opacity(jstate.params, jstate.opt)
+        jstate = jstate.replace(params=params, opt=opt)
     carried = train_state_to_numpy(jstate)
     jstate, jm = jstep.train_step(jstate, bank, jnp.int32(0), jnp.asarray(bg), **kw)
     want = train_state_to_numpy(jstate)

@@ -363,9 +363,14 @@ def test_capture_safe_constants_keep_the_step(dataset, tmp_path, monkeypatch):
     camera's focal division, Adam's betas, the learning rates, the
     schedule's logs) and binning's expansion without a boolean selection
     give the outputs the host-copied forms gave, bit for bit."""
+    import importlib
+
     from gsjax_torch.core import cameras
-    from gsjax_torch.render import binning, preprocess
+    from gsjax_torch.render import binning
     from gsjax_torch.train import optimizer, schedule
+
+    # The module: the package's name `preprocess` is the function, as gsjax's.
+    preprocess = importlib.import_module("gsjax_torch.render.preprocess")
 
     def old_true_div(num, den):
         return torch.div(den.new_tensor(num), den)
@@ -443,3 +448,34 @@ def test_profile_dir_writes_a_trace_of_steps_100_to_110(dataset, tmp_path):
     t._profile_at(110)
     assert t._profiler is None
     assert os.listdir(tmp_path / "prof") == ["trace_100_110.json"]
+
+
+def test_split_seed_seeds_the_densify_generator(dataset, tmp_path, monkeypatch):
+    """The split noise's generator starts at gsjax's seed 0 unless the
+    Trainer is given another; cli.train.main hands its `split_seed` on."""
+    import sys
+
+    from gsjax_torch.cli import train as train_cli
+
+    state = {seed: port_trainer(dataset, tmp_path / str(seed), OptimizationConfig(),
+                                **({} if seed is None else {"split_seed": seed}))
+             ._generator.get_state() for seed in (None, 0, 1)}
+    assert torch.equal(state[None], state[0])
+    assert not torch.equal(state[0], state[1])
+
+    seen = {}
+
+    class Stop(Exception):
+        pass
+
+    def trainer(*args, **kw):
+        seen.update(kw)
+        raise Stop
+
+    monkeypatch.setattr(sys, "stdout", sys.stdout)
+    monkeypatch.setattr(train_cli, "Trainer", trainer)
+    monkeypatch.setattr(train_cli, "prepare_output_and_logger", lambda cfg: (cfg, None))
+    with pytest.raises(Stop):
+        train_cli.main(["-s", dataset, "-m", str(tmp_path / "cli"), "--port", "0",
+                        "--data_device", "cpu", "--quiet"], split_seed=2)
+    assert seen["split_seed"] == 2
