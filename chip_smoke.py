@@ -133,8 +133,13 @@ Phases, one JSON line each (any failure exits non-zero):
            the straight run's bit for bit where the graph phase found the
            eager step reproducible; the straight run's evaluation of all
            eight views through its captured evaluation and eagerly, ms per
-           view, bit for bit. Runs last, after every profiled measurement,
-           just before the kernels line
+           view, bit for bit; the straight run's --profile_dir trace of
+           steps 100-110 holds each main kernel exactly as often as the
+           trainer launched it in the windows it covered
+  after_trainer  one window of 10 replays of the bench step, captured
+           after the trainer phase in the same process, in one profiler
+           session: each main kernel's events exactly the capture's
+           launches times the replays
   cull     at the bench origin view: for each warp shape (32x1, 16x2, 8x4)
            the (instance, warp) pairs the exact walk visits, those the
            cull keeps and those with a live pixel; the culled composite
@@ -164,7 +169,8 @@ kernels' arguments, their times from the cull phase), each kernel's
 launches (over the training run; the tools' over their own path, with "path": "tools"
 and 0 launches per step and per view), its error against its plain
 version on those very arguments (max_abs_err; the kernels and tools
-phases' errors in mid_scene_max_abs_err), device time from the profiler,
+phases' errors in mid_scene_max_abs_err), device time from the profiler
+(ms_source: sessions held whole, gsjax_torch/tools/common.whole_session),
 time by CUDA events with the host's launch work included, plain time,
 bound, the time of one PyTorch call computing the same function where
 there is one, and the kernel's CUDA launches and the other device
@@ -184,6 +190,9 @@ import subprocess
 import sys
 import time
 import warnings
+
+# Names of each wrapper's CUDA kernels, as the profiler reports them.
+from gsjax_torch.tools.common import DEVICE_KERNELS
 
 # The card's published peaks (H100 SXM data sheet, dense, at 700 W).
 HBM_BYTES_PER_S = 3.35e12
@@ -252,20 +261,6 @@ SOURCES = {
     "composite_forward_nocull": "gsjax_torch/csrc/composite_probes.cu",
     "composite_backward_nocull": "gsjax_torch/csrc/composite_probes.cu",
 }
-# Names of each wrapper's CUDA kernels, as the profiler reports them.
-DEVICE_KERNELS = {
-    "composite_forward": "composite_forward_kernel",
-    "row_engine": "row_engine_",
-    "rank_prefix": "rank_prefix_kernel",
-    "composite_backward": "composite_backward_kernel",
-    "segment_sum": "segment_sum_kernel",
-    "row_gather": "row_gather_kernel",
-    "outpath": "outpath_kernel",
-    "blockout": "blockout_kernel",
-    "variant": "variant_",
-    "composite_forward_nocull": "nocull_forward_kernel",
-    "composite_backward_nocull": "nocull_backward_kernel",
-}
 # The warp shapes the cull phase counts, by warp width (32x1, 16x2, 8x4).
 WARP_WIDTHS = (32, 16, 8)
 BACKWARD_KERNELS = ("composite_backward", "segment_sum")
@@ -273,7 +268,12 @@ FORWARD_KERNELS = ("composite_forward", "row_engine", "rank_prefix")
 
 
 def emit(obj) -> None:
-    print(json.dumps(obj), flush=True)
+    """Print one JSON line; where profiler sessions were refused and taken
+    again since the last line, their errors go into it
+    (`profiler_sessions_refused`, tools/common.with_refused)."""
+    from gsjax_torch.tools.common import with_refused
+
+    print(json.dumps(with_refused(obj)), flush=True)
 
 
 class Recorder:
@@ -923,7 +923,7 @@ def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
     composite's pairs are the forward entry's, counted on the same
     stream), and the probes against the main kernels (`probes`)."""
     from gsjax_torch.render.common import N_FIELDS, ROWS
-    from gsjax_torch.tools.common import cuda_ms, device_ms
+    from gsjax_torch.tools.common import cuda_ms, device_ms, with_refused
     from gsjax_torch.tools.probe_prims import gather_bytes
 
     inst, ts, geo = stream.inst, stream.tile_start, stream.geometry
@@ -940,7 +940,7 @@ def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
         extra.update(ops_per_call(call, DEVICE_KERNELS[name]))
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOP_PER_S * 1e3
-        out.append(dict(
+        out.append(with_refused(dict(
             name=name, route="cuda", source=SOURCES[name], replaces=REPLACES[name],
             launches=launches[name], path="tools",
             step_launches=main_launches["step"][name],
@@ -949,7 +949,7 @@ def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
             plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=library_ms, plain_source=PLAIN_SOURCE[name],
-            event_ms=event_ms, bytes=nbytes, flops=flops, **extra))
+            event_ms=event_ms, bytes=nbytes, flops=flops, **extra)))
 
     with torch.no_grad():
         src = torch.nn.functional.pad(stream.fields, (0, ROWS - N_FIELDS, 0, 1))
@@ -1003,7 +1003,7 @@ def twin_entries(torch, tool_kernels, entries, origin_calls, train_calls,
     render, the backward's at one training step): device ms from the cull
     phase's turns, their errors against the plain versions, and the main
     kernels' bounds (the same work)."""
-    from gsjax_torch.tools.common import cuda_ms
+    from gsjax_torch.tools.common import cuda_ms, with_refused
 
     out = []
     for name, calls in (("composite_forward", origin_calls),
@@ -1027,7 +1027,7 @@ def twin_entries(torch, tool_kernels, entries, origin_calls, train_calls,
                 raise AssertionError(f"main path: {twin_name} differs from plain by {err}")
             event_ms = cuda_ms(lambda: twin(*args, **kw), reps=20, warmup=2)
             plain_ms = cuda_ms(lambda: plain(*args, **kw), reps=2)
-        out.append(dict(
+        out.append(with_refused(dict(
             name=twin_name, route="cuda", source=SOURCES[twin_name],
             replaces=REPLACES[twin_name], launches=launches[twin_name], path="tools",
             step_launches=main_launches["step"][twin_name],
@@ -1036,7 +1036,7 @@ def twin_entries(torch, tool_kernels, entries, origin_calls, train_calls,
             plain_ms=plain_ms, bound_ms=main["bound_ms"], bound_by=main["bound_by"],
             library_ms=None, plain_source=PLAIN_SOURCE[twin_name], event_ms=event_ms,
             bytes=main["bytes"], flops=main["flops"], main_ms=main["ms"],
-            **ops_per_call(lambda: twin(*args, **kw), DEVICE_KERNELS[twin_name])))
+            **ops_per_call(lambda: twin(*args, **kw), DEVICE_KERNELS[twin_name]))))
     return out
 
 
@@ -1320,20 +1320,19 @@ def window_timings(torch, forms, n_steps: int) -> dict:
 
 
 def replay_launches_seen(torch, kernels, steps, window, n_steps: int, where: str) -> dict:
-    """The main kernels' launches per replay that torch.profiler sees over
-    one window of n_steps replays; they must equal the last capture's
-    count."""
-    from gsjax_torch.tools.common import _profiled
+    """The main kernels' events in one whole torch.profiler session over
+    one window of n_steps replays (tools/common.whole_profile: each
+    kernel's events equal the launches the port counted);
+    each must be exactly the last capture's count times n_steps. Returns
+    the events of the window."""
+    from gsjax_torch.tools.common import device_event_names, kernel_events, whole_profile
 
-    events = _profiled(window, 1, lambda ev: any(
-        DEVICE_KERNELS["composite_forward"] in e.name for e in ev))
-    if events is None:
-        raise AssertionError(f"{where}: the profiler saw no kernel of the replays")
-    seen = {k: round(sum(DEVICE_KERNELS[k] in e.name for e in events) / n_steps)
-            for k in kernels.KERNEL_NAMES}
-    if seen != steps.captures[-1]["launches"]:
-        raise AssertionError(f"{where}: the profiler counts {seen} launches per replay, "
-                             f"the capture {steps.captures[-1]['launches']}")
+    seen = kernel_events(device_event_names(whole_profile(window)))
+    seen = {k: seen[k] for k in kernels.KERNEL_NAMES}
+    want = {k: n * n_steps for k, n in steps.captures[-1]["launches"].items()}
+    if seen != want:
+        raise AssertionError(f"{where}: the profiler recorded {seen} launches over "
+                             f"{n_steps} replays, the capture {want}")
     return seen
 
 
@@ -1405,7 +1404,7 @@ def phase_graph(torch, kernels, state, bank, cfg):
 
     line.update(window_timings(torch, (("eager", eager, ea), ("graph", graphed, gs)),
                                GRAPH_STEPS))
-    line["profiler_launches_per_replay"] = replay_launches_seen(
+    line["profiler_launches_per_window"] = replay_launches_seen(
         torch, kernels, steps, lambda: graphed(gs), GRAPH_STEPS, "graph")
     line["frame_between_windows"] = frame_between_windows(torch, steps, graphed, gs, start,
                                                           bank, cfg)
@@ -1913,7 +1912,7 @@ def mesh_graph(torch, kernels, mesh, params, aux, bank, cfg) -> dict:
            "launches_per_window": launches, "warmup_launches": warmup}
     out.update(window_timings(torch, (("eager", eager, ea), ("graph", graphed, gs)),
                               MESH_GRAPH_STEPS))
-    out["profiler_launches_per_replay"] = replay_launches_seen(
+    out["profiler_launches_per_window"] = replay_launches_seen(
         torch, kernels, steps, lambda: graphed(gs), MESH_GRAPH_STEPS, "mesh_graph")
     steps.drop_step_graphs()
     return out
@@ -2431,12 +2430,10 @@ def phase_profilers(torch, params, aux, camera, cfg):
 
 
 def phase_replayed_timing(torch, params, aux, camera, cfg):
-    """What times replays of captured graphs, after every profiled
-    measurement (torch.profiler misses kernel events after many replays in
-    one process, PERF.md §7): gsjax_torch.bench's line (its value the
-    replayed step, the dispatched step beside it), then bench_fps and
-    bench_sweep (32x32, 16x16) through their run functions at TOOL_ITERS,
-    each replayed and dispatched: one line per measurement."""
+    """What times replays of captured graphs: gsjax_torch.bench's line (its
+    value the replayed step, the dispatched step beside it), then bench_fps
+    and bench_sweep (32x32, 16x16) through their run functions at
+    TOOL_ITERS, each replayed and dispatched: one line per measurement."""
     from gsjax_torch import bench
     from gsjax_torch.tools import bench_fps, bench_sweep
 
@@ -2761,6 +2758,43 @@ def eval_timing(torch, trainer) -> dict:
             "ms_per_view_dispatched": eager_ms / n_views, "replays_equal_eager": True}
 
 
+def profile_dir_trace(kernels, trainer) -> dict:
+    """The trainer's --profile_dir session: the kernel events of the Chrome
+    trace it exported against the launches it recorded for the windows the
+    session covered, kernel by kernel (tools/common.check_whole); all five
+    main kernels must be in it."""
+    from gsjax_torch.tools import trace
+    from gsjax_torch.tools.common import check_whole, kernel_events
+
+    rec = next(e for e in trainer.events if "profile" in e)
+    names = trace.chrome_trace_kernels(rec["trace"])
+    check_whole(names, rec["launches"], "the --profile_dir trace")
+    missing = [k for k in kernels.KERNEL_NAMES if rec["launches"][k] == 0]
+    if missing:
+        raise AssertionError(f"trainer: the --profile_dir trace holds no {missing}")
+    seen = kernel_events(names)
+    return {"iterations": rec["profile"], "kernel_events": len(names),
+            "main_kernels": {k: seen[k] for k in kernels.KERNEL_NAMES}}
+
+
+def phase_after_trainer(torch, kernels, params, aux, camera, cfg):
+    """After the trainer phase, in the same process: one window of
+    GRAPH_STEPS replays of the bench step, captured anew, in one whole
+    profiler session; every main kernel's events must be exactly the
+    capture's launches times the replays (replay_launches_seen)."""
+    from gsjax_torch.tools.common import replayed_train_steps
+    from gsjax_torch.train import step as steps
+
+    window = replayed_train_steps(params, aux, camera, cfg, GRAPH_STEPS)
+    window()
+    torch.cuda.synchronize()
+    seen = replay_launches_seen(torch, kernels, steps, window, GRAPH_STEPS, "after_trainer")
+    emit({"phase": "after_trainer", "steps": GRAPH_STEPS,
+          "capture_launches": steps.captures[-1]["launches"],
+          "profiler_launches_per_window": seen})
+    steps.drop_step_graphs()
+
+
 def phase_trainer(torch, kernels, render, params, resume_bitwise, lpips_weights):
     """The port's CLIs on a dataset on disk: a COLMAP model of the bench
     scene (write_colmap_scene) trained by `python -m gsjax_torch.cli.train`
@@ -2776,9 +2810,11 @@ def phase_trainer(torch, kernels, render, params, resume_bitwise, lpips_weights)
     1080p report costs seconds; tests/test_torch_cli.py drives the
     writer). Counts set to 0 just before the straight run and read after
     metrics: every main-path kernel launched; the replays' launches are
-    inferred, the captures' counts times the replays (the graph phase
-    checks that count against torch.profiler; this phase comes after the
-    profiled ones). Last, tools.bench_trained on the straight run's PLY."""
+    the captures' counts times the replays. The straight run writes
+    gsjax's --profile_dir trace of steps 100-110: its kernel events must
+    equal, kernel by kernel, the launches the trainer recorded for the
+    windows the session covered, and hold all five main kernels. Last,
+    tools.bench_trained on the straight run's PLY."""
     import json
     import os
     import tempfile
@@ -2809,13 +2845,14 @@ def phase_trainer(torch, kernels, render, params, resume_bitwise, lpips_weights)
                 "--test_iterations", str(last), "--save_iterations", str(last),
                 "--checkpoint_iterations", "200", str(last), "--port", "0"]
         straight, resumed = os.path.join(root, "straight"), os.path.join(root, "resumed")
+        profile_dir = os.path.join(straight, "profile")
         steps.drop_step_graphs()
         steps.reset_graph_counts()
         torch.cuda.synchronize()
         kernels.reset_launch_counts()
         with without_tensorboard():
-            trainer, seconds["train"] = timed(
-                torch, lambda: train_cli.main(argv + ["-m", straight]))
+            trainer, seconds["train"] = timed(torch, lambda: train_cli.main(
+                argv + ["-m", straight, "--profile_dir", profile_dir]))
             _, seconds["render"] = timed(torch, lambda: render_cli.main(
                 ["-m", straight, "--iteration", str(last), "--skip_train", "--quiet"]))
             saved_env = os.environ.get("GSJAX_LPIPS_WEIGHTS")
@@ -2857,6 +2894,7 @@ def phase_trainer(torch, kernels, render, params, resume_bitwise, lpips_weights)
                 and results["LPIPS"] is not None and math.isfinite(results["LPIPS"])):
             raise AssertionError(f"trainer: results.json {results}")
         line["eval"] = eval_timing(torch, trainer)
+        line["profile_dir_trace"] = profile_dir_trace(kernels, trainer)
         del trainer
 
         with without_tensorboard():
@@ -2894,7 +2932,7 @@ def main() -> int:
     )
     from gsjax_torch.tools import kernels as tool_kernels
     from gsjax_torch.tools.common import (
-        cuda_ms, device_ms, instance_stream, profile_table,
+        cuda_ms, device_ms, instance_stream, profile_table, with_refused,
     )
 
     dev = torch.device("cuda")
@@ -3021,7 +3059,7 @@ def main() -> int:
         profile_stages.Stages(params, aux, views["origin"], cfgs[False]))
     emit(dict(phase="stages", **stages))
 
-    # --- LPIPS, and queue item 7's profilers (profiled: before the trainer) ---
+    # --- LPIPS, and queue item 7's profilers ---------------------------------
     import os
     import tempfile
 
@@ -3110,7 +3148,7 @@ def main() -> int:
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / F32_FLOP_PER_S * 1e3
         extra.update(ops_per_call(lambda: fn(*args, **kw), DEVICE_KERNELS[name]))
-        entries.append(dict(
+        entries.append(with_refused(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=train_launches[name],
             view_run_launches=launches[name], max_abs_err=main_err,
@@ -3119,7 +3157,7 @@ def main() -> int:
             bound_by="bytes" if t_bytes >= t_ops else "operations",
             library_ms=library_ms, plain_source=PLAIN_SOURCE[name],
             event_ms=event_ms, bytes=nbytes, flops=flops, **extra,
-        ))
+        )))
     fwd_entry = next(e for e in entries if e["name"] == "composite_forward")
     entries += tool_entries(torch, tool_kernels, stream_bench, *tools, fwd_entry,
                             main_launches)
@@ -3127,6 +3165,9 @@ def main() -> int:
                             tools[1], tools[2], twin_ms, main_launches)
     if not all(math.isfinite(e["ms"]) for e in entries):
         raise AssertionError("kernel timing failed")
+    for e in entries:
+        # Every `ms` above is a device_ms of one session held whole.
+        e["ms_source"] = "profiler"
 
     # --- the remaining tools that profile: bench_scan, probe_gradreduce,
     # scaling_projection (after the kernels line's measurements) -------------
@@ -3136,8 +3177,7 @@ def main() -> int:
     phase_replayed_timing(torch, params, aux, views["origin"], cfgs[False])
 
     # --- the device mesh on this card: a 1x1 mesh over NCCL --------------------
-    # After the profiled measurements (it times by CUDA events and the host
-    # clock only), before the trainer phase.
+    # It times by CUDA events and the host clock only.
     mesh_launches, mesh_errs, mesh_graph_launches = phase_mesh(
         torch, kernels, render, params, aux, views["origin"], views["orbit+0.15"],
         bank, scene, scene_cfg)
@@ -3152,11 +3192,12 @@ def main() -> int:
     phase_tools_rest(torch, params, aux, views["origin"], origin_counts)
 
     # --- the training CLI, render and metrics on a dataset on disk ------------
-    # Last of the measurements: after its run torch.profiler sessions in this
-    # process miss kernel events (PERF.md §7), and every profiled number
-    # above is taken before it.
+    # Its --profile_dir trace and a profiled window after it are held to the
+    # port's launch counts, as every profiler session is (whole_session):
+    # no measurement depends on running before it.
     phase_trainer(torch, kernels, render, params,
                   graph_line["eager_bitwise_reproducible"], lpips_weights)
+    phase_after_trainer(torch, kernels, params, aux, views["origin"], cfgs[False])
     lpips_dir.cleanup()
     emit({"kernels": entries})
     print(smi, flush=True)

@@ -53,9 +53,12 @@ from gsjax_torch.tools.common import (
     WIDTH,
     bench_scene,
     cuda_ms,
+    device_event_names,
     device_ms,
     require_card,
     trained_orbit_camera,
+    whole_profile,
+    with_refused,
 )
 from gsjax_torch.train.loss import l1_loss
 
@@ -146,9 +149,6 @@ class Stages:
 def profile(stages: Stages, iters: int = ITERS,
             device_reps: int = DEVICE_REPS) -> dict:
     """Every stage's event and device time, and the instance counts."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile as torch_profile
-
     proj = stages.preprocess()
     fields, binning = stages.binning(proj)
     inst = stages.build_inst(fields, binning)
@@ -170,15 +170,10 @@ def profile(stages: Stages, iters: int = ITERS,
     rows = []
     for name, fn in table:
         event = cuda_ms(fn, iters, warmup=1)
-        with torch_profile(activities=[ProfilerActivity.CPU,
-                                       ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels_per_run = sum(e.count for e in prof.key_averages()
-                              if e.device_type == DeviceType.CUDA)
-        rows.append({"stage": name, "event_ms": event,
-                     "device_ms": device_ms(fn, None, device_reps),
-                     "device_kernels": kernels_per_run})
+        kernels_per_run = len(device_event_names(whole_profile(fn)))
+        rows.append(with_refused({"stage": name, "event_ms": event,
+                                  "device_ms": device_ms(fn, None, device_reps),
+                                  "device_kernels": kernels_per_run}))
     return {"stages": rows, "rect_instances": int(binning.num_instances),
             "budget": stages.cfg.max_instances, "live_instances": int(ts[-1])}
 

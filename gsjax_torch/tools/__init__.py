@@ -11,7 +11,10 @@ probe_gradreduce (the grad reduction's pieces), probe_saturation (the
 view's final transmittance), probe_tilesize (pairs per tile shape),
 bench_mesh_overhead and bench_scaling (the sharded step on one card and
 per mesh shape), scaling_projection (t(data, tile) from one card's
-stages). And the runs and files around training: quality_run (with the
+stages), probe_profiler (whether profiler sessions record every launch,
+after the trainer's calls) and probe_frame (whether a viewer frame
+between training windows changes the state). And the runs and files
+around training: quality_run (with the
 quality artifact), diagnose_quality (its diagnosis), sky_run (the sky
 shell with and without), ckpt_to_ply and export_lpips_weights. Their
 kernels are in tools/kernels.py; the bench scene and the timing helpers

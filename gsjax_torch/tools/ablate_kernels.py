@@ -44,6 +44,7 @@ from gsjax_torch.tools.common import (
     device_ms,
     instance_stream,
     require_card,
+    with_refused,
 )
 
 DEFAULT_VARIANTS = ("dma_only", "replay_fwd", "bwd_nowrite")
@@ -60,9 +61,9 @@ def ablate(stream, variants=DEFAULT_VARIANTS, reps: int = REPS) -> list[dict]:
 
     def timed(name, fn, kernel_name):
         with torch.no_grad():
-            rows.append({"tool": "ablate_kernels", "variant": name,
-                         "ms": device_ms(fn, kernel_name, reps),
-                         "event_ms": cuda_ms(fn, reps, warmup=2)})
+            rows.append(with_refused({"tool": "ablate_kernels", "variant": name,
+                                      "ms": device_ms(fn, kernel_name, reps),
+                                      "event_ms": cuda_ms(fn, reps, warmup=2)}))
 
     for v in variants:
         if v.startswith("blockout"):

@@ -54,12 +54,14 @@ def timed(fn, calls: int, steps: int) -> dict:
 def busy(fn, steps: int) -> dict:
     """Device busy ms per step and the idle share of one traced call."""
     from gsjax_torch.tools import trace
+    from gsjax_torch.tools.common import with_refused
     from gsjax_torch.tools.trace_step import trace_ops
 
     ops = trace_ops(fn, 1, marks=())
     gaps = trace.idle_gaps([(op.start_us, op.end_us) for op in ops])
-    return {"device_busy_ms_per_step": gaps["busy"] / 1e3 / steps,
-            "idle_share": gaps["idle_share"], "device_ops_per_step": len(ops) / steps}
+    return with_refused({"device_busy_ms_per_step": gaps["busy"] / 1e3 / steps,
+                         "idle_share": gaps["idle_share"],
+                         "device_ops_per_step": len(ops) / steps})
 
 
 def run(params, aux, camera, cfg, window: int = WINDOW, outer: int = OUTER) -> dict:

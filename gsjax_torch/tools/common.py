@@ -10,6 +10,7 @@ hands the composite kernels for that view.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 
@@ -24,6 +25,7 @@ from gsjax_torch.render.common import build_inst_data
 from gsjax_torch.render.graph import render_replayed
 from gsjax_torch.render.preprocess import preprocess
 from gsjax_torch.synthetic import look_at_origin_camera, random_scene
+from gsjax_torch.utils.profiler import start_session, stop_session
 
 BENCH_N = 500_000
 WIDTH, HEIGHT = 1920, 1080
@@ -173,77 +175,180 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     return start.elapsed_time(end) / reps
 
 
-# torch.profiler on the card now and then records no device events for a
-# session, several sessions in a row at times: such a session is taken
-# again, after a pause that grows with each try.
-PROFILE_TRIES = 10
+# The names torch.profiler gives each kernel wrapper's CUDA kernels (a
+# substring of each; no name holds another wrapper's).
+DEVICE_KERNELS = {
+    "composite_forward": "composite_forward_kernel",
+    "row_engine": "row_engine_",
+    "rank_prefix": "rank_prefix_kernel",
+    "composite_backward": "composite_backward_kernel",
+    "segment_sum": "segment_sum_kernel",
+    "row_gather": "row_gather_kernel",
+    "outpath": "outpath_kernel",
+    "blockout": "blockout_kernel",
+    "variant": "variant_",
+    "composite_forward_nocull": "nocull_forward_kernel",
+    "composite_backward_nocull": "nocull_backward_kernel",
+}
 
 
-def _profiled(fn, reps: int, accept):
-    """The CUDA events of one profiling session over `reps` runs of fn()
-    (after one unprofiled run) that `accept` takes, trying PROFILE_TRIES
-    sessions; None if none was accepted."""
+class IncompleteSession(AssertionError):
+    """A torch.profiler session that did not record every kernel launch
+    the port counted while it was open."""
+
+
+def port_launches() -> dict[str, int]:
+    """The port's kernel launches executed on the card so far, by wrapper:
+    the main kernels' (graph replays included, captures apart:
+    render/graph.executed_launches) and the tools kernels'."""
+    from gsjax_torch.render.graph import executed_launches
+    from gsjax_torch.tools import kernels as tool_kernels
+
+    return {**executed_launches(), **tool_kernels.launch_counts}
+
+
+def kernel_events(names) -> dict[str, int]:
+    """The device events among `names` of each kernel wrapper."""
+    return {k: sum(sub in n for n in names) for k, sub in DEVICE_KERNELS.items()}
+
+
+def session_gaps(names, launched: dict[str, int]) -> dict[str, tuple[int, int]]:
+    """{wrapper: (events, launches)} for every wrapper whose kernel events
+    among the device event names `names` differ from its launches."""
+    seen = kernel_events(names)
+    return {k: (seen[k], launched.get(k, 0)) for k in DEVICE_KERNELS
+            if seen[k] != launched.get(k, 0)}
+
+
+def check_whole(names, launched: dict[str, int], what: str = "a profiler session") -> None:
+    """Raises IncompleteSession unless the device events `names` hold each
+    kernel wrapper's launches exactly, and hold any event at all."""
+    gaps = session_gaps(names, launched)
+    if gaps:
+        raise IncompleteSession(what + " recorded " + "; ".join(
+            f"{seen} events of {k} ({DEVICE_KERNELS[k]}) where the port launched {n}"
+            for k, (seen, n) in gaps.items()))
+    if not names:
+        raise IncompleteSession(f"{what} recorded no device event")
+
+
+def device_event_names(prof) -> list[str]:
+    """The names of a finished session's device operations, from the
+    profiler's raw (Kineto) events; a range's span on the device timeline
+    is not one (trace.is_marker)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from gsjax_torch.tools.trace import is_marker
+
+    return [r.name() for r in prof.profiler.kineto_results.events()
+            if r.device_type() == DeviceType.CUDA and not is_marker(r.name())]
+
+
+@contextlib.contextmanager
+def whole_session(cpu: bool = False):
+    """A torch.profiler session (CUDA activity; with `cpu` the CPU's too)
+    that opens with the port's warm-up step (utils/profiler.start_session)
+    and is held to the port's own launch counts: when the body ends (the
+    card synchronized), the session's events of each kernel wrapper must
+    number the launches the port counted while it recorded
+    (port_launches), and it must hold a device event. Else
+    IncompleteSession, naming the kernel and both counts: a session is
+    neither rescaled nor, here, taken again (whole_profile counts its
+    retries). Yields the profiler."""
+    from torch.profiler import ProfilerActivity
+
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if cpu else [])
+    prof = start_session(activities)
+    before = port_launches()
+    try:
+        yield prof
+    finally:
+        stop_session(prof)
+    launched = {k: n - before[k] for k, n in port_launches().items()}
+    check_whole(device_event_names(prof), launched)
+
+
+# Sessions whole_profile takes over one body before it gives up. The
+# warm-up step leaves an incomplete session now and then (PERF.md §6,
+# fault F4): each one is refused, counted and reported.
+PROFILE_TRIES = 3
+_refused: list[str] = []
+
+
+def whole_profile(body, cpu: bool = False):
+    """The profiler of one whole session (whole_session) over body(). An
+    incomplete session is refused and body() profiled again, at most
+    PROFILE_TRIES sessions in all (the last refusal raises); every refused
+    session's error is kept until with_refused reports it."""
+    for attempt in range(PROFILE_TRIES):
+        try:
+            with whole_session(cpu) as prof:
+                body()
+            return prof
+        except IncompleteSession as e:
+            _refused.append(str(e))
+            if attempt == PROFILE_TRIES - 1:
+                raise
+
+
+def with_refused(row: dict) -> dict:
+    """`row`, with the errors of the profiler sessions refused since the
+    last call (`profiler_sessions_refused`) where there were any: the line
+    that reports a number also counts the sessions taken again for it."""
+    refused = list(_refused)
+    _refused.clear()
+    return {**row, "profiler_sessions_refused": refused} if refused else row
+
+
+def _profiled(fn, reps: int) -> list:
+    """The device operations (CUDA events) of one whole session over `reps`
+    runs of fn(), after one unprofiled run."""
+    from torch.autograd import DeviceType
+
+    from gsjax_torch.tools.trace import is_marker
+
+    def body():
+        for _ in range(reps):
+            fn()
 
     fn()
     torch.cuda.synchronize()
-    for attempt in range(PROFILE_TRIES):
-        if attempt:
-            time.sleep(0.05 * attempt)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if accept(events):
-            return events
-    return None
+    prof = whole_profile(body)
+    return [e for e in prof.events()
+            if e.device_type == DeviceType.CUDA and not is_marker(e.name)]
 
 
 def device_ms(fn, kernel_name: str | None = None, reps: int = 20) -> float:
     """Mean device time in ms of the device work one fn() launches (only
-    the kernels whose names hold `kernel_name`, if given), from
-    torch.profiler over `reps` runs. Unlike cuda_ms it leaves out the
-    host's time between launches, which is longer than a microsecond
-    kernel. A session often misses one launch: a named kernel's time is
-    its mean per recorded launch times its launches per call."""
-    def named(events):
-        return [e for e in events if kernel_name is None or kernel_name in e.name]
+    the kernels whose names hold `kernel_name`, if given), from one whole
+    torch.profiler session over `reps` runs. Unlike cuda_ms it leaves out
+    the host's time between launches, which is longer than a microsecond
+    kernel."""
+    events = [e for e in _profiled(fn, reps)
+              if kernel_name is None or kernel_name in e.name]
+    if not events:
+        raise AssertionError(f"fn launched no kernel named {kernel_name}")
+    return sum(e.self_device_time_total for e in events) / 1e3 / reps
 
-    events = _profiled(fn, reps, lambda ev: sum(e.self_device_time_total for e in named(ev)) > 0)
-    if events is None:
-        raise AssertionError(f"the profiler saw no device time for {kernel_name} "
-                             f"in {PROFILE_TRIES} sessions")
-    events = named(events)
-    us = sum(e.self_device_time_total for e in events)
-    if kernel_name is None:
-        return us / 1e3 / reps
-    return us / len(events) * max(round(len(events) / reps), 1) / 1e3
+
+def _per_call(count: int, calls: int, what: str) -> int:
+    if count % calls:
+        raise AssertionError(f"{count} {what} over {calls} calls: not the same each call")
+    return count // calls
 
 
 def device_ops(fn, kernel_name: str | None = None, calls: int = 5) -> dict:
-    """The device operations of one fn() under no_grad, by torch.profiler
-    over `calls` calls, rounded to whole operations per call (a session
-    often misses one event): kernels, memsets, and with `kernel_name` the
-    launches of the kernels whose names hold it (`named`; a session that
-    recorded none of them is taken again)."""
-    def is_memset(e):
-        return "memset" in e.name.lower()
-
-    def accept(events):
-        return any(kernel_name in e.name for e in events) if kernel_name else bool(events)
-
+    """The device operations of one fn() under no_grad, from one whole
+    torch.profiler session over `calls` calls: kernels, memsets, and with
+    `kernel_name` the launches of the kernels whose names hold it
+    (`named`). Each count is the same for every call (else an error)."""
     with torch.no_grad():
-        events = _profiled(fn, calls, accept)
-    if events is None:
-        raise AssertionError(f"the profiler saw no device operation of {kernel_name} "
-                             f"in {PROFILE_TRIES} sessions")
-    memsets = sum(map(is_memset, events))
-    out = {"kernels": round((len(events) - memsets) / calls),
-           "memsets": round(memsets / calls)}
+        names = [e.name for e in _profiled(fn, calls)]
+    memsets = sum("memset" in n.lower() for n in names)
+    out = {"kernels": _per_call(len(names) - memsets, calls, "kernels"),
+           "memsets": _per_call(memsets, calls, "memsets")}
     if kernel_name:
-        out["named"] = round(sum(kernel_name in e.name for e in events) / calls)
+        out["named"] = _per_call(sum(kernel_name in n for n in names), calls, kernel_name)
     return out
 
 
@@ -252,17 +357,23 @@ def profile_table(fn, unprofiled_ms: float, top: int = 15) -> dict:
     the idle share against `unprofiled_ms` (the same work timed by CUDA
     events, without the profiler) and the top device ops."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    from gsjax_torch.tools.trace import is_marker
+
+    wall = []
+
+    def body():
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+        wall.append((time.perf_counter() - t0) * 1e3)
+
+    torch.cuda.synchronize()
+    prof = whole_profile(body, cpu=True)
+    wall_ms = wall[-1]
     rows = sorted(
-        ((e.self_device_time_total, e.key, e.count)
-         for e in prof.key_averages() if e.device_type == DeviceType.CUDA),
+        ((e.self_device_time_total, e.key, e.count) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and not is_marker(e.key)),
         reverse=True,
     )
     busy_ms = sum(r[0] for r in rows) / 1e3

@@ -74,16 +74,16 @@ def pieces(inst_grads, sorted_slot, gm_start) -> dict:
 
 def run(binning, generator: torch.Generator, iters: int = ITERS) -> list[dict]:
     """The pieces timed on `binning` and seeded (P, ROWS) gradients."""
-    from gsjax_torch.tools.common import cuda_ms, device_ms
+    from gsjax_torch.tools.common import cuda_ms, device_ms, with_refused
 
     p = binning.sorted_slot.shape[0]
     inst_grads = torch.randn((p, ROWS), generator=generator, device=generator.device)
     rows = []
     with torch.no_grad():
         for name, fn in pieces(inst_grads, binning.sorted_slot, binning.gm_start).items():
-            rows.append({"tool": "probe_gradreduce", "piece": name,
-                         "ms": device_ms(fn, None, iters),
-                         "event_ms": cuda_ms(fn, iters, warmup=2)})
+            rows.append(with_refused({"tool": "probe_gradreduce", "piece": name,
+                                      "ms": device_ms(fn, None, iters),
+                                      "event_ms": cuda_ms(fn, iters, warmup=2)}))
     rows.append({"tool": "probe_gradreduce", "instances": p,
                  "gaussians": binning.gm_start.shape[0] - 1, "fields": N_FIELDS,
                  "not_ported": NOT_PORTED})

@@ -22,6 +22,7 @@ from gsjax_torch.tools.common import (
     device_ms,
     instance_stream,
     require_card,
+    with_refused,
 )
 
 REPS = 20
@@ -33,9 +34,9 @@ def outpaths(stream, reps: int = REPS) -> list[dict]:
     with torch.no_grad():
         for v in tool_kernels.OUTPATH_VARIANTS:
             fn = lambda v=v: tool_kernels.outpath(inst, ts, v, **geo)  # noqa: E731
-            rows.append({"tool": "probe_outpath", "variant": v,
-                         "ms": device_ms(fn, "outpath_kernel", reps),
-                         "event_ms": cuda_ms(fn, reps, warmup=2)})
+            rows.append(with_refused({"tool": "probe_outpath", "variant": v,
+                                      "ms": device_ms(fn, "outpath_kernel", reps),
+                                      "event_ms": cuda_ms(fn, reps, warmup=2)}))
     return rows
 
 

@@ -30,7 +30,7 @@ import torch
 
 from gsjax_torch.render import kernels
 from gsjax_torch.tools import kernels as tool_kernels
-from gsjax_torch.tools.common import cuda_ms, device_ms, require_card
+from gsjax_torch.tools.common import cuda_ms, device_ms, require_card, with_refused
 
 P = 1_179_648
 R = 524_288
@@ -70,9 +70,10 @@ def probe(device="cuda", reps: int = REPS) -> list[dict]:
 
     def timed(name, fn, **extra):
         with torch.no_grad():
-            rows.append(dict({"tool": "probe_prims", "probe": name,
-                              "ms": device_ms(fn, None, reps),
-                              "event_ms": cuda_ms(fn, reps, warmup=2)}, **extra))
+            rows.append(with_refused(dict({"tool": "probe_prims", "probe": name,
+                                           "ms": device_ms(fn, None, reps),
+                                           "event_ms": cuda_ms(fn, reps, warmup=2)},
+                                          **extra)))
 
     for label, src, idx in (("(N,16)@P", f16, idx_p), ("(N,8)@P", f8, idx_p),
                             ("(N,1)@P", f1, idx_p), ("(N,16)@R", f16, idx_r)):

@@ -51,6 +51,7 @@ from gsjax_torch.tools.common import (
     device_ms,
     device_ops,
     require_card,
+    with_refused,
 )
 
 ITERS = 30
@@ -212,7 +213,7 @@ def profile(params, aux, camera, cfg, iters: int = ITERS,
         else:
             fn()
             row["device_ms"] = "not measured"
-        rows.append(row)
+        rows.append(with_refused(row))
     rows.append({"tool": "profile_binning", "num_instances": int(outputs["total"]),
                  "num_rows": int(outputs["total_rows"]),
                  "budgets": {"max_instances": cfg.max_instances,

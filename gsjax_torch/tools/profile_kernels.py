@@ -33,7 +33,13 @@ from gsjax_torch.config import RasterConfig
 from gsjax_torch.profile_stages import Stages
 from gsjax_torch.render import kernels
 from gsjax_torch.tools import profile_binning, time_composite
-from gsjax_torch.tools.common import bench_scene, cuda_ms, device_ms, require_card
+from gsjax_torch.tools.common import (
+    bench_scene,
+    cuda_ms,
+    device_ms,
+    require_card,
+    with_refused,
+)
 from gsjax_torch.train.loss import l1_loss
 
 ITERS = 30
@@ -68,9 +74,9 @@ def run(params, aux, camera, cfg, binning_only: bool = False, iters: int = ITERS
         ("untile+loss fwd+bwd", untile_loss),
         ("preprocess fwd+bwd", st.preprocess_fwd_bwd),
     ):
-        rows.append({"tool": "profile_kernels", "stage": name,
-                     "event_ms": cuda_ms(fn, iters, warmup=1),
-                     "device_ms": device_ms(fn, None, device_reps)})
+        rows.append(with_refused({"tool": "profile_kernels", "stage": name,
+                                  "event_ms": cuda_ms(fn, iters, warmup=1),
+                                  "device_ms": device_ms(fn, None, device_reps)}))
     return rows
 
 

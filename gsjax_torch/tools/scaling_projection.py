@@ -189,7 +189,7 @@ def main(argv=None) -> dict:
 
     from gsjax_torch.config import RasterConfig
     from gsjax_torch.render.preprocess import preprocess
-    from gsjax_torch.tools.common import SH_DEGREE, bench_scene, require_card
+    from gsjax_torch.tools.common import SH_DEGREE, bench_scene, require_card, with_refused
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--stages-json", default=None,
@@ -240,7 +240,8 @@ def main(argv=None) -> dict:
         json.dump(out, f, indent=1)
     for row in rows:
         print(json.dumps({"tool": "scaling_projection", **row}), flush=True)
-    print(json.dumps({k: v for k, v in out.items() if k != "projection"}), flush=True)
+    print(json.dumps(with_refused({k: v for k, v in out.items() if k != "projection"})),
+          flush=True)
     return out
 
 

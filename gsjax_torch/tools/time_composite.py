@@ -26,27 +26,10 @@ from gsjax_torch.config import RasterConfig
 from gsjax_torch.render import kernels
 from gsjax_torch.render.api import render
 from gsjax_torch.synthetic import look_at_origin_camera, random_scene
+from gsjax_torch.tools.common import device_ms, with_refused
 
 REPS = 30
 BUDGETS = dict(max_instances=1_179_648, max_rows=524_288)
-
-
-def _device_ms(fn, kernel_name: str, reps: int = REPS) -> float:
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a session now and then records no device events
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = sum(e.self_device_time_total for e in prof.key_averages()
-                 if e.device_type == DeviceType.CUDA and kernel_name in e.key)
-        if us > 0:
-            return us / 1e3 / reps
-    raise AssertionError(f"the profiler saw no device time for {kernel_name}")
 
 
 def kernel_times(params, aux, camera, cfg, reps: int = REPS) -> dict:
@@ -77,8 +60,8 @@ def kernel_times(params, aux, camera, cfg, reps: int = REPS) -> dict:
     with torch.no_grad():
         for name, fn in real.items():
             args, kw = calls[name]
-            line[f"{name}_ms"] = _device_ms(lambda: fn(*args, **kw), f"{name}_kernel", reps)
-    return line
+            line[f"{name}_ms"] = device_ms(lambda: fn(*args, **kw), f"{name}_kernel", reps)
+    return with_refused(line)
 
 
 def main() -> None:

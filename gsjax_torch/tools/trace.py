@@ -13,6 +13,7 @@ where: the port's own composite kernels, and the gathers (the launching
 op is a gather: index_select, index, gather, take).
 
     ops = device_ops(prof)        # on the card, after a profiled session
+    chrome_trace_kernels(path)    # the kernels of an exported Chrome trace
     by_family(ops), by_name(ops), idle_gaps(intervals), makespan(intervals)
 """
 
@@ -21,8 +22,14 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import json
+
+from gsjax_torch.utils.profiler import is_lead_in
 
 RANGE_PREFIX = "gsjt:"
+# The range torch.profiler opens around each step of a schedule (the port's
+# sessions have one: utils/profiler.start_session).
+STEP_RANGE = "ProfilerStep"
 BACKWARD_PREFIX = "autograd::engine::evaluate_function"
 COMPOSITE_KERNELS = ("composite_forward_kernel", "composite_backward_kernel",
                      "segment_sum_kernel")
@@ -45,6 +52,14 @@ class DeviceOp:
     @property
     def us(self) -> float:
         return self.end_us - self.start_us
+
+
+def is_marker(name: str) -> bool:
+    """Whether a device event of this name is not an operation of the work
+    profiled: a range's span on the device timeline (a tool's family range,
+    the profiler's step) or a kernel of the session's lead-in
+    (utils/profiler)."""
+    return name.startswith((RANGE_PREFIX, STEP_RANGE)) or is_lead_in(name)
 
 
 def family(op: DeviceOp) -> str:
@@ -193,7 +208,7 @@ def device_ops(prof) -> list[DeviceOp]:
     ops = []
     for r in raw:
         # The ranges' spans on the device timeline are not operations.
-        if r.device_type() != DeviceType.CUDA or r.name().startswith(RANGE_PREFIX):
+        if r.device_type() != DeviceType.CUDA or is_marker(r.name()):
             continue
         chain: list[str] = []
         src = launcher.get(r.linked_correlation_id())
@@ -212,3 +227,13 @@ def _ancestors(evt):
     while evt is not None:
         yield evt
         evt = evt.cpu_parent
+
+
+def chrome_trace_kernels(path: str) -> list[str]:
+    """The names of the kernel events (category "kernel") of a Chrome trace
+    that torch.profiler exported, e.g. the trainer's --profile_dir trace,
+    its session's lead-in left out."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return [e["name"] for e in events
+            if e.get("cat") == "kernel" and not is_lead_in(e["name"])]

@@ -28,7 +28,13 @@ from gsjax_torch.render import kernels
 from gsjax_torch.render.binning import bin_gaussians
 from gsjax_torch.render.preprocess import preprocess
 from gsjax_torch.tools import trace
-from gsjax_torch.tools.common import PROFILE_TRIES, SH_DEGREE, bench_scene, require_card
+from gsjax_torch.tools.common import (
+    SH_DEGREE,
+    bench_scene,
+    require_card,
+    whole_profile,
+    with_refused,
+)
 
 CALLS = 8
 TOP = 15
@@ -68,31 +74,26 @@ def run(params, aux, camera, cfg) -> dict:
     """The calls' per-call rows and their operations by name, as one dict.
     The host synchronises and sleeps PAUSE_S between calls, so that each
     call starts on an idle device and the calls split at those gaps."""
-    from torch.profiler import ProfilerActivity, profile
-
     calls = CALLS
     fn = binning_call(params, aux, camera, cfg)
     out = fn()
     torch.cuda.synchronize()
-    for _ in range(PROFILE_TRIES):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                fn()
-                torch.cuda.synchronize()
-                time.sleep(PAUSE_S)
-        ops = trace.device_ops(prof)
-        if ops:
-            break
-    else:
-        raise AssertionError(f"the profiler saw no device operation in {PROFILE_TRIES} sessions")
+    def body():
+        for _ in range(calls):
+            fn()
+            torch.cuda.synchronize()
+            time.sleep(PAUSE_S)
+
+    ops = trace.device_ops(whole_profile(body))
     rows = per_call(ops, calls)
     spans = [r["makespan_ms"] for r in rows]
-    return {"tool": "trace_binning", "calls": calls,
-            "num_instances": int(out.num_instances), "num_rows": int(out.num_rows),
-            "ops_per_call": len(ops) / calls,
-            "op_sum_ms_per_call": sum(op.us for op in ops) / 1e3 / calls,
-            "makespan_ms_mean": sum(spans) / len(spans),
-            "per_call": rows, "by_name": trace.by_name(ops, per=calls, top=TOP)}
+    return with_refused({
+        "tool": "trace_binning", "calls": calls,
+        "num_instances": int(out.num_instances), "num_rows": int(out.num_rows),
+        "ops_per_call": len(ops) / calls,
+        "op_sum_ms_per_call": sum(op.us for op in ops) / 1e3 / calls,
+        "makespan_ms_mean": sum(spans) / len(spans),
+        "per_call": rows, "by_name": trace.by_name(ops, per=calls, top=TOP)})
 
 
 def main(argv=None) -> None:

@@ -36,7 +36,13 @@ from gsjax_torch.parallel import step as parallel_step
 from gsjax_torch.render import api as render_api
 from gsjax_torch.render import kernels
 from gsjax_torch.tools import trace
-from gsjax_torch.tools.common import PROFILE_TRIES, bench_scene, cuda_ms, require_card
+from gsjax_torch.tools.common import (
+    bench_scene,
+    cuda_ms,
+    require_card,
+    whole_profile,
+    with_refused,
+)
 from gsjax_torch.train import step as step_mod
 
 WARMUP = 3
@@ -122,22 +128,15 @@ def sharded_bench_step(params, aux, camera, cfg, mesh):
 
 
 def trace_ops(fn, steps: int, marks=MARKS) -> list[trace.DeviceOp]:
-    """The device operations of `steps` runs of fn() under the profiler,
-    with the marks' ranges open; a session without device operations is
-    taken again (tools/common.PROFILE_TRIES)."""
-    from torch.profiler import ProfilerActivity, profile
+    """The device operations of `steps` runs of fn() in one whole profiler
+    session (tools/common.whole_profile), with the marks' ranges open."""
+    def body():
+        for _ in range(steps):
+            fn()
 
-    for _ in range(PROFILE_TRIES):
-        torch.cuda.synchronize()
-        with trace.marked(marks), profile(
-                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(steps):
-                fn()
-            torch.cuda.synchronize()
-        ops = trace.device_ops(prof)
-        if ops:
-            return ops
-    raise AssertionError(f"the profiler saw no device operation in {PROFILE_TRIES} sessions")
+    torch.cuda.synchronize()
+    with trace.marked(marks):
+        return trace.device_ops(whole_profile(body, cpu=True))
 
 
 def run(params, aux, camera, cfg, mesh=None) -> dict:
@@ -152,7 +151,7 @@ def run(params, aux, camera, cfg, mesh=None) -> dict:
     ops = trace_ops(fn, steps, marks)
     gaps = trace.idle_gaps([(op.start_us, op.end_us) for op in ops])
     fam = trace.by_family(ops, per=steps)
-    return {
+    return with_refused({
         "tool": "trace_step", "sharded": mesh is not None, "steps": steps,
         "step_ms": step_ms,
         "device_ops_per_step": len(ops) / steps,
@@ -163,7 +162,7 @@ def run(params, aux, camera, cfg, mesh=None) -> dict:
         "largest_gaps_us": [round(g["gap"], 1) for g in gaps["largest"]],
         "by_family_ms": fam,
         "by_name": trace.by_name(ops, per=steps, top=TOP),
-    }
+    })
 
 
 def main(argv=None) -> None:

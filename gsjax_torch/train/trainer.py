@@ -62,7 +62,7 @@ from gsjax_torch.config import (
 )
 from gsjax_torch.model import PARAM_NAMES, GaussianAux, pad_gaussian_params
 from gsjax_torch.parallel.mesh import dim_size
-from gsjax_torch.render.graph import eval_views, render_replayed
+from gsjax_torch.render.graph import eval_views, executed_launches, render_replayed
 from gsjax_torch.train.checkpoint import load_checkpoint_extra, save_checkpoint
 from gsjax_torch.train.densify import densify_and_prune, reset_opacity
 from gsjax_torch.train.optimizer import AdamState, adam_init
@@ -72,6 +72,7 @@ from gsjax_torch.train.step import (
     drop_step_graphs,
     train_steps,
 )
+from gsjax_torch.utils.profiler import start_session, stop_session
 
 
 def _pow2_chunks(n: int) -> list[int]:
@@ -611,6 +612,8 @@ class Trainer:
                 self.events.append({"host": iteration, "ms": work})
         if progress is not None:
             progress.close()
+        if self._profiler is not None:  # the run ended inside the window
+            self._close_profile(iteration)
 
     def _poll_gui(self, iteration: int, total_iters: int) -> None:
         """Viewer polling (reference: train.py:52-66): connect if no client
@@ -643,24 +646,34 @@ class Trainer:
 
     def _profile_at(self, iteration: int) -> None:
         """A torch.profiler trace of the windows from step 100 to 110,
-        written to profile_dir as a Chrome trace."""
-        from torch.profiler import ProfilerActivity, profile
+        written to profile_dir as a Chrome trace. The session opens with
+        the port's warm-up step (utils/profiler.start_session); its record
+        in `events` holds the iterations it covered, the trace's path and
+        the kernel launches the port executed while it recorded (the trace
+        holds as many events of each kernel)."""
+        from torch.profiler import ProfilerActivity
 
         lo, hi = self._profile_window
         if self._profiler is None and lo <= iteration < hi:
             activities = [ProfilerActivity.CPU]
             if self.device.type == "cuda":
                 activities.append(ProfilerActivity.CUDA)
-            self._profiler = profile(activities=activities)
-            self._profiler.__enter__()
+            self._profiler = start_session(activities)
+            self._profile_open = (iteration, executed_launches())
         elif self._profiler is not None and iteration >= hi:
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-            self._profiler.__exit__(None, None, None)
-            os.makedirs(self.profile_dir, exist_ok=True)
-            self._profiler.export_chrome_trace(
-                os.path.join(self.profile_dir, f"trace_{lo}_{hi}.json"))
-            self._profiler = None
+            self._close_profile(iteration)
+
+    def _close_profile(self, iteration: int) -> None:
+        stop_session(self._profiler)
+        lo, hi = self._profile_window
+        path = os.path.join(self.profile_dir, f"trace_{lo}_{hi}.json")
+        os.makedirs(self.profile_dir, exist_ok=True)
+        self._profiler.export_chrome_trace(path)
+        self._profiler = None
+        start, before = self._profile_open
+        self.events.append({
+            "profile": [start, iteration], "trace": path,
+            "launches": {k: n - before[k] for k, n in executed_launches().items()}})
 
     # ------------------------------------------------------------- internals
     def _assign(self, new: TrainState) -> None:

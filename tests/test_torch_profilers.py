@@ -4,17 +4,21 @@ trace_binning, bench_sweep}) on the CPU: each refuses to run without a
 card; their pure parts run here: bench_sweep's configurations (and
 argument errors for the ones the port refuses), the op-family grouping
 of a made-up trace, idle gaps, makespans and the split of a trace into
-calls."""
+calls, and the check that holds a profiler session (or an exported Chrome
+trace) to the kernel launches the port counted."""
 
 from __future__ import annotations
 
 import argparse
+import json
+import types
 
 import pytest
 import torch
 
 from gsjax_torch.tools import (
     bench_fps,
+    common,
     bench_sweep,
     bench_trained,
     profile_kernels,
@@ -139,3 +143,159 @@ def test_marked_wraps_and_restores():
             assert mod.f is not original and mod.f(1) == 2
     assert mod.f is original
     assert any(e.name == "gsjt:Adam" for e in prof.events())
+
+
+def _kernel(name):
+    return f"void {name}<1, true>(float const*, int const*, int, int, int, int, float*)"
+
+
+FORWARD = _kernel("composite_forward_kernel")
+BACKWARD = _kernel("composite_backward_kernel")
+OTHER_OPS = ["Memset (Device)", "void at::native::vectorized_elementwise_kernel<4>()"]
+
+
+def test_a_whole_session_is_taken():
+    names = [FORWARD] * 3 + [BACKWARD, _kernel("row_engine_kernel")] + OTHER_OPS
+    launched = {"composite_forward": 3, "composite_backward": 1, "row_engine": 1,
+                "segment_sum": 0}
+    assert common.session_gaps(names, launched) == {}
+    common.check_whole(names, launched)
+    assert common.kernel_events(names)["composite_forward"] == 3
+    # Events of no kernel of the port are whole when it launched none.
+    common.check_whole(OTHER_OPS, dict.fromkeys(common.DEVICE_KERNELS, 0))
+    # Ranges and the session's lead-in are not operations of the work.
+    assert [trace.is_marker(n) for n in ("ProfilerStep#1", "gsjt:SSIM",
+                                         "spin_kernel(long)", FORWARD)] == [
+        True, True, True, False]
+
+
+def test_a_session_missing_one_launch_raises():
+    names = [FORWARD] * 2 + [BACKWARD] + OTHER_OPS
+    launched = {"composite_forward": 3, "composite_backward": 1}
+    assert common.session_gaps(names, launched) == {"composite_forward": (2, 3)}
+    with pytest.raises(common.IncompleteSession,
+                       match=r"2 events of composite_forward .* launched 3$"):
+        common.check_whole(names, launched)
+    # An event of a kernel the port did not count is no more whole.
+    with pytest.raises(common.IncompleteSession, match="1 events of segment_sum"):
+        common.check_whole(names + [_kernel("segment_sum_kernel")],
+                           {"composite_forward": 2, "composite_backward": 1})
+    with pytest.raises(common.IncompleteSession, match="no device event"):
+        common.check_whole([], {})
+
+
+def test_incomplete_sessions_are_retried_and_reported(monkeypatch):
+    """whole_profile takes an incomplete session again, at most
+    PROFILE_TRIES in all, and with_refused puts each refused session's
+    error into the next reported line (then forgets it)."""
+    import contextlib
+
+    outcomes = []
+
+    @contextlib.contextmanager
+    def session(cpu=False):
+        yield "profiler"
+        if outcomes.pop(0):
+            raise common.IncompleteSession(f"refused {len(outcomes)}")
+
+    monkeypatch.setattr(common, "whole_session", session)
+    ran = []
+    outcomes[:] = [True, False]
+    assert common.whole_profile(lambda: ran.append(1)) == "profiler" and len(ran) == 2
+    assert common.with_refused({"ms": 1.0}) == {
+        "ms": 1.0, "profiler_sessions_refused": ["refused 1"]}
+    assert common.with_refused({"ms": 2.0}) == {"ms": 2.0}
+    outcomes[:] = [True] * common.PROFILE_TRIES
+    with pytest.raises(common.IncompleteSession, match="refused 0"):
+        common.whole_profile(lambda: None)
+    assert len(common.with_refused({})["profiler_sessions_refused"]) == common.PROFILE_TRIES
+
+
+def test_device_ops_counts_each_call_exactly(monkeypatch):
+    events = [types.SimpleNamespace(name=n)
+              for n in [FORWARD, "Memset (Device)", OTHER_OPS[1]] * 5]
+    monkeypatch.setattr(common, "_profiled", lambda fn, reps: events[:3 * reps])
+    assert common.device_ops(None, "composite_forward_kernel", calls=5) == {
+        "kernels": 2, "memsets": 1, "named": 1}
+    monkeypatch.setattr(common, "_profiled", lambda fn, reps: events[:3 * reps - 1])
+    with pytest.raises(AssertionError, match="over 5 calls"):
+        common.device_ops(None, "composite_forward_kernel", calls=5)
+
+
+def test_profile_dir_trace_kernels_of_a_made_up_chrome_trace(tmp_path):
+    """The trainer's --profile_dir trace as torch.profiler exports it: the
+    kernel events (category "kernel") alone, the session's lead-in left
+    out, held to the launches the trainer recorded for its windows."""
+    events = [{"ph": "X", "cat": "cpu_op", "name": "aten::mul", "ts": 0, "dur": 1},
+              {"ph": "X", "cat": "cuda_runtime", "name": "cudaGraphLaunch", "ts": 1,
+               "dur": 1},
+              {"ph": "X", "cat": "gpu_user_annotation", "name": FORWARD, "ts": 2, "dur": 1},
+              {"ph": "X", "cat": "gpu_memset", "name": "Memset (Device)", "ts": 3,
+               "dur": 1},
+              {"ph": "f", "cat": "ac2g", "name": "ac2g", "ts": 4}]
+    events += [{"ph": "X", "cat": "kernel", "name": n, "ts": 10 + i, "dur": 1}
+               for i, n in enumerate(["spin_kernel(long)"] * 3 + [FORWARD] * 4
+                                     + [BACKWARD] * 4 + [OTHER_OPS[1]])]
+    path = tmp_path / "trace_100_110.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    names = trace.chrome_trace_kernels(str(path))
+    assert names == [FORWARD] * 4 + [BACKWARD] * 4 + [OTHER_OPS[1]]
+    common.check_whole(names, {"composite_forward": 4, "composite_backward": 4})
+    with pytest.raises(common.IncompleteSession, match="4 events of composite_backward"):
+        common.check_whole(names, {"composite_forward": 4, "composite_backward": 5})
+
+
+# --- the card ----------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from gsjax_torch.render import kernels
+
+    kernels.build()
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_sessions_whole_after_a_training_run_on_card(card, tmp_path, monkeypatch):
+    """A run of cli.train (120 iterations on a small synthetic dataset, its
+    --profile_dir trace of steps 100-110), then profiler sessions as the
+    port takes them in the same process: the trace holds each main kernel
+    exactly as often as the trainer launched it in the windows it covered,
+    and ten sessions of twenty composite_forward launches are each whole
+    (tools/common.whole_profile raises after PROFILE_TRIES incomplete
+    ones)."""
+    import sys
+
+    from gsjax_torch.cli import train as train_cli
+    from gsjax_torch.config import RasterConfig
+    from gsjax_torch.render import kernels
+    from gsjax_torch.synthetic import look_at_origin_camera, random_scene
+    from gsjax_torch.tools.synthetic_scene import generate
+
+    data = generate(str(tmp_path / "data"), res=96, n_train=8, n_test=2, n_spheres=8,
+                    n_seed_points=2000)
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard", None)
+    monkeypatch.setattr(sys, "stdout", sys.stdout)  # --quiet replaces it
+    trainer = train_cli.main([
+        "-s", data, "-m", str(tmp_path / "model"), "--quiet", "--iterations", "120",
+        "--test_iterations", "121", "--save_iterations", "120", "--port", "0",
+        "--profile_dir", str(tmp_path / "profile")])
+    rec = next(e for e in trainer.events if "profile" in e)
+    assert rec["profile"] == [100, 110] and rec["launches"]["composite_backward"] > 0
+    common.check_whole(trace.chrome_trace_kernels(rec["trace"]), rec["launches"],
+                       "the --profile_dir trace")
+
+    params, aux = random_scene(5000, sh_degree=1, seed=3, spread=1.5, device=card)
+    stream = common.instance_stream(
+        params, look_at_origin_camera(320, 240, device=card),
+        RasterConfig(tile_size=16, max_instances=1 << 17, max_rows=1 << 16), aux.alive,
+        sh_degree=1)
+    for _ in range(10):
+        common.whole_profile(lambda: [kernels.composite_forward(
+            stream.inst, stream.tile_start, **stream.geometry) for _ in range(20)])
+    assert common.device_ms(
+        lambda: kernels.composite_forward(stream.inst, stream.tile_start, **stream.geometry),
+        common.DEVICE_KERNELS["composite_forward"]) > 0

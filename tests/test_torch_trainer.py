@@ -33,6 +33,7 @@ from gsjax.scene import Scene as JScene
 from gsjax.train.densify import DensifyStats as JDensifyStats
 from gsjax_torch.config import ModelConfig, OptimizationConfig, RasterConfig
 from gsjax_torch.data.ply import store_points_ply
+from gsjax_torch.render import kernels
 from gsjax_torch.scene import Scene
 from gsjax_torch.train import step as steps
 from gsjax_torch.train import trainer as trainer_mod
@@ -437,7 +438,9 @@ def test_capture_safe_constants_keep_the_step(dataset, tmp_path, monkeypatch):
 
 def test_profile_dir_writes_a_trace_of_steps_100_to_110(dataset, tmp_path):
     """--profile_dir: a torch.profiler session opens when a window ends in
-    [100, 110) and is written as a Chrome trace once one ends at 110."""
+    [100, 110) and is written as a Chrome trace once one ends at 110; its
+    record holds the iterations, the trace and the port's kernel launches
+    in between (none on the CPU)."""
     t = port_trainer(dataset, tmp_path / "m", OptimizationConfig(),
                      profile_dir=str(tmp_path / "prof"))
     assert t._next_boundary(95, ()) == 100 and t._next_boundary(100, ()) == 110
@@ -447,6 +450,29 @@ def test_profile_dir_writes_a_trace_of_steps_100_to_110(dataset, tmp_path):
     torch.zeros(4).add_(1)
     t._profile_at(110)
     assert t._profiler is None
+    assert os.listdir(tmp_path / "prof") == ["trace_100_110.json"]
+    rec = [e for e in t.events if "profile" in e]
+    assert rec == [{"profile": [100, 110],
+                    "trace": str(tmp_path / "prof" / "trace_100_110.json"),
+                    "launches": dict.fromkeys(kernels.KERNEL_NAMES, 0)}]
+
+
+def test_profile_dir_closes_the_session_of_a_run_ending_inside_it(dataset, tmp_path,
+                                                                  monkeypatch):
+    """A run that ends inside [100, 110) closes its profiler session and
+    writes the trace of the windows it ran (the steps stubbed)."""
+    def steps_fn(state, bank, cam_indices, bgs, **kw):
+        n = len(cam_indices)
+        zero = torch.zeros(n, dtype=torch.int32)
+        return state, steps.StepMetrics(torch.full((n,), 0.5), torch.full((n,), 0.5),
+                                        zero, zero)
+
+    monkeypatch.setattr(trainer_mod, "train_steps", steps_fn)
+    t = port_trainer(dataset, tmp_path / "m", OptimizationConfig(iterations=105),
+                     profile_dir=str(tmp_path / "prof"))
+    t.train(test_iterations=(), save_iterations=(), checkpoint_iterations=())
+    assert t._profiler is None
+    assert [e["profile"] for e in t.events if "profile" in e] == [[100, 105]]
     assert os.listdir(tmp_path / "prof") == ["trace_100_110.json"]
 
 
