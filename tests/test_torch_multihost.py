@@ -248,7 +248,7 @@ def test_cli_train_under_torchrun(dataset, tmp_path):
            "--iterations", "4", "--save_iterations", "4", "--test_iterations", "4",
            "--port", "0", "--quiet", "--eval"]
     run = subprocess.run(cmd, env=env, cwd=worker.REPO, capture_output=True, text=True,
-                         timeout=300)
+                         timeout=150)
     assert run.returncode == 0, run.stdout[-3000:] + run.stderr[-3000:]
     a, b = (torch.load(os.path.join(tmp_path, f"rank{r}.pt")) for r in range(2))
     assert (a["rank"], a["is_main"], b["rank"], b["is_main"]) == (0, True, 1, False)

@@ -286,7 +286,7 @@ WORKER = os.path.abspath(__file__)
 REPO = os.path.dirname(os.path.dirname(WORKER))
 
 
-def launch(task: str, n: int, out_dir: str, *args: str, timeout: float = 300) -> list[dict]:
+def launch(task: str, n: int, out_dir: str, *args: str, timeout: float = 150) -> list[dict]:
     """Run `task` in n worker processes joined by gsjax's launch protocol;
     returns each rank's results, in rank order."""
     port = free_port()
