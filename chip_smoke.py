@@ -14,7 +14,8 @@ Phases, one JSON line each (any failure exits non-zero):
            (20k Gaussians at 320x240; integers exact, composite forward
            within 2e-3, composite backward within 5e-3 of each gradient
            column's largest value, segment sums within 1e-5 of each run's
-           sum of magnitudes); row_engine and rank_prefix bit for bit on
+           sum of magnitudes, the row gather exactly, at int32 and int64
+           indices); row_engine and rank_prefix bit for bit on
            the inputs that break load-balanced designs (case
            expand_adversarial, gsjax_torch/tools/expand_cases.py at card
            scale); and binning's rank form (600k Gaussians at 1920x1080 in
@@ -40,7 +41,7 @@ Phases, one JSON line each (any failure exits non-zero):
            cull bit for bit (the backward up to the sign of a zero)
   train    train_step() on the bench scene against the exact render of
            that scene, from a perturbed copy: 3 warm-up and 10 timed steps
-           (loss per step, ms per step, pixels/s, host ms); all five
+           (loss per step, ms per step, pixels/s, host ms); all six
            kernels' launch counts over those steps; a profile of one step
   graph    the same 10 steps on the bench scene, views cycling through a
            CameraBank of the four main-phase views, eagerly (twice) and as
@@ -95,7 +96,7 @@ Phases, one JSON line each (any failure exits non-zero):
            world-size-1 NCCL group and a 1x1 ("data", "tile") DeviceMesh on
            the bench scene; render_sharded and composite_slab at 2 and 4
            slabs (stitched) against render() within 2e-5, the slabs' pair
-           and row counts against the view's; the five kernels on the slab
+           and row counts against the view's; the six kernels on the slab
            against their plain versions; sharded_grads against the eager
            step's gradients (loss rtol 1e-5, gradients 5e-3 of each
            column's largest) and one sharded step after Adam against
@@ -147,13 +148,13 @@ Phases, one JSON line each (any failure exits non-zero):
            the view's render and training step; each timed against its
            twin in turns (twin, main, main, twin), profiler device time
   tools    the profiling tools' kernels (gsjax_torch/tools/kernels.py:
-           the four probes and the two twins) against their plain
-           versions on the mid scene; then the tools' own path,
+           the three composite probes and the two twins) against their
+           plain versions on the mid scene; then the tools' own path,
            gsjax_torch.tools.{ablate_kernels, probe_outpath, probe_prims},
            on the bench origin view (one line per measurement), with the
            tools kernels' launch counts over it;
            then each kernel against its plain version at that view's own
-           arguments (row_gather: the instance gather's (N,16) rows at P);
+           arguments;
            on both streams the ablation probes against the kernels they
            launch as: blockout = composite_forward and replay_fwd,
            fwd_nocond = its red at pixel 0, bit for bit; bwd_nowrite = the
@@ -227,7 +228,7 @@ PLAIN_SOURCE = {
     "rank_prefix": "gsjax_torch/render/kernels.py",
     "composite_backward": "gsjax_torch/render/tiled.py",
     "segment_sum": "gsjax_torch/render/kernels.py",
-    "row_gather": "gsjax_torch/tools/kernels.py",
+    "row_gather": "gsjax_torch/render/kernels.py",
     "outpath": "gsjax_torch/tools/kernels.py",
     "blockout": "gsjax_torch/tools/kernels.py",
     "variant": "gsjax_torch/tools/kernels.py",
@@ -264,7 +265,10 @@ SOURCES = {
 # The warp shapes the cull phase counts, by warp width (32x1, 16x2, 8x4).
 WARP_WIDTHS = (32, 16, 8)
 BACKWARD_KERNELS = ("composite_backward", "segment_sum")
-FORWARD_KERNELS = ("composite_forward", "row_engine", "rank_prefix")
+# The row gather's last call of a render is the (P, 16) instance gather,
+# of a training step the permute's backward: the forward's arguments stand
+# for it.
+FORWARD_KERNELS = ("composite_forward", "row_engine", "rank_prefix", "row_gather")
 
 
 def emit(obj) -> None:
@@ -433,6 +437,11 @@ def mid_scene_checks(torch, kernels, render, RasterConfig, random_scene,
                 raise AssertionError(f"{case}: {name} differs from plain by {e}")
             errs[name] = max(errs[name], e)
             line[name] = e
+        src, idx = rec.calls["row_gather"][0]  # the permute's backward
+        for ix in (idx, idx.long()):
+            if not torch.equal(kernels.row_gather(src, ix), kernels.row_gather_plain(src, ix)):
+                raise AssertionError(f"{case}: row_gather differs from plain")
+        line["row_gather"] = 0.0
         args, kw = rec.calls["composite_forward"]
         e = max_err(kernels.composite_forward(*args, **kw),
                     kernels.composite_forward_plain(*args, **kw))
@@ -713,31 +722,22 @@ def check_twins(torch, kernels, tool_kernels, fwd_call, bwd_call, where):
 
 def check_tool_kernels(torch, tool_kernels, stream, where):
     """The profiling tools' kernels against their plain versions on one
-    instance stream (tools/common.InstanceStream): row_gather on the
-    instance gather's own (N,16) rows at P with int32 and int64 indices,
-    exactly; outpath and blockout (both variants, both semantics) within
-    the forward's 2e-3, the notrans block sum within rtol 1e-5 of its 4 PIX
-    summed values (the rest of the block exactly 0); each ablation variant
-    as tests/test_torch_tools.py holds it (dma_only rtol 1e-6, the walks
+    instance stream (tools/common.InstanceStream): outpath and blockout
+    (both variants, both semantics) within the forward's 2e-3, the notrans
+    block sum within rtol 1e-5 of its 4 PIX summed values (the rest of the
+    block exactly 0); each ablation variant as tests/test_torch_tools.py
+    holds it (dma_only rtol 1e-6, the walks
     2e-3 per chunk summed, the backward variants 5e-3 of the largest |d_mx|
     of their cotangent); the twins without the cull as the main kernels
     (2e-3; 5e-3 of each gradient column's largest, on the backward
     variants' cotangent). Returns {kernel: max abs error} and the variants'
     errors."""
     from gsjax_torch.render import kernels
-    from gsjax_torch.render.common import N_FIELDS, ROWS
 
     inst, ts, geo = stream.inst, stream.tile_start, stream.geometry
     pix = geo["tile_w"] * geo["tile_h"]
     errs, variant_errs = {}, {}
     with torch.no_grad():
-        src = torch.nn.functional.pad(stream.fields, (0, ROWS - N_FIELDS, 0, 1))
-        for idx in (stream.binning.sorted_owner, stream.binning.sorted_owner.long()):
-            if not torch.equal(tool_kernels.row_gather(src, idx),
-                               tool_kernels.row_gather_plain(src, idx)):
-                raise AssertionError(f"{where}: row_gather differs from plain")
-        errs["row_gather"] = 0.0
-
         ship = tool_kernels.outpath(inst, ts, "ship", **geo)
         e = max_err(ship, tool_kernels.outpath_plain(inst, ts, "ship", **geo))
         got = tool_kernels.outpath(inst, ts, "notrans", **geo)
@@ -840,7 +840,7 @@ def probes_against_main(torch, tool_kernels, stream, where) -> dict:
 
 def phase_tools(torch, tool_kernels, stream_mid, stream_bench):
     """The tools' kernels against their plain versions on the mid scene;
-    then the tools' own path on the bench origin view with the four
+    then the tools' own path on the bench origin view with the tools
     kernels' launch counts set to 0 just before and read just after; then
     the kernels against their plain versions at that view's arguments.
     Returns the tools' measurement rows, the launches and both errors."""
@@ -917,14 +917,12 @@ def phase_cull(torch, kernels, tool_kernels, origin_calls, train_calls):
 
 def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
                  variant_errs, probes, fwd_entry, main_launches):
-    """The `kernels` line's entries of the tools' four probe kernels at the
+    """The `kernels` line's entries of the tools' three probe kernels at the
     bench origin view: device and event ms from the tools' own run (`rows`),
     the plain versions timed here, bounds from this view's data (the
     composite's pairs are the forward entry's, counted on the same
     stream), and the probes against the main kernels (`probes`)."""
-    from gsjax_torch.render.common import N_FIELDS, ROWS
-    from gsjax_torch.tools.common import cuda_ms, device_ms, with_refused
-    from gsjax_torch.tools.probe_prims import gather_bytes
+    from gsjax_torch.tools.common import cuda_ms, with_refused
 
     inst, ts, geo = stream.inst, stream.tile_start, stream.geometry
     pix = geo["tile_w"] * geo["tile_h"]
@@ -951,20 +949,6 @@ def tool_entries(torch, tool_kernels, stream, rows, launches, mid_errs, errs,
             library_ms=library_ms, plain_source=PLAIN_SOURCE[name],
             event_ms=event_ms, bytes=nbytes, flops=flops, **extra)))
 
-    with torch.no_grad():
-        src = torch.nn.functional.pad(stream.fields, (0, ROWS - N_FIELDS, 0, 1))
-        idx = stream.binning.sorted_owner
-        n_rows = idx.shape[0]
-        gather = lambda: tool_kernels.row_gather(src, idx)  # noqa: E731
-        entry("row_gather", device_ms(gather, DEVICE_KERNELS["row_gather"]),
-              cuda_ms(gather, reps=20, warmup=2),
-              lambda: tool_kernels.row_gather_plain(src, idx),
-              gather_bytes(idx, ROWS), 0,
-              library_ms=cuda_ms(lambda: torch.index_select(src, 0, idx), reps=20,
-                                 warmup=2),
-              library_int64_ms=cuda_ms(
-                  lambda: torch.index_select(src, 0, idx.long()), reps=20, warmup=2),
-              call=gather, shape=f"({src.shape[0]},{ROWS})@{n_rows}")
     outpath = {r["variant"]: r for r in rows if r["tool"] == "probe_outpath"}
     entry("outpath", outpath["ship"]["ms"], outpath["ship"]["event_ms"],
           lambda: tool_kernels.outpath_plain(inst, ts, "ship", **geo),
@@ -1070,8 +1054,8 @@ def views_line(torch, draw, draw_replayed, eager_outputs, views, fast):
         torch.cuda.synchronize()
         host[form] = (time.perf_counter() - t0) * 1e3 / len(views)
     per_replay = graph.captures[-1]["launches"]
-    if len(graph.captures) != 1 or any(per_replay[k] != 1 for k in ("composite_forward",
-                                                                  "rank_prefix")):
+    want = {"composite_forward": 1, "rank_prefix": 1, "row_gather": 2}
+    if len(graph.captures) != 1 or any(per_replay[k] != n for k, n in want.items()):
         raise AssertionError(f"views: captures {graph.captures}")
     mean = sum(replayed) / len(replayed)
     mean_dispatched = sum(dispatched) / len(dispatched)
@@ -1928,7 +1912,7 @@ def phase_mesh(torch, kernels, render, params, aux, camera, gt_camera, bank, sce
     for each slab at n_tile 2 and 4, stitched, against render() within
     2e-5, the slabs' pair and row counts summing to the view's exactly at
     n_tile 2 (34 tile rows split evenly) and at least to them at n_tile 4
-    (the last slab overruns); the five kernels on the 1x1 slab against
+    (the last slab overruns); the six kernels on the 1x1 slab against
     their plain versions; sharded_grads against the eager step's gradients
     (loss rtol 1e-5, gradients 5e-3 of each column's largest); one sharded
     step's parameters after Adam against train_step's (fewer than 0.5 % of
@@ -1937,7 +1921,7 @@ def phase_mesh(torch, kernels, render, params, aux, camera, gt_camera, bank, sce
     captures), its loss finite. Timings: the
     group's start-up seconds (rendezvous and the first all_reduce), ms per
     step of the eager sharded step and of train_step in turns, launches of
-    the five kernels per sharded step (counts set to 0 just before
+    the six kernels per sharded step (counts set to 0 just before
     MESH_STEPS sharded steps and read just after). The group is destroyed
     at the end. Returns ({kernel: launches per sharded step}, {kernel: max
     abs error on the slab})."""
@@ -2030,7 +2014,7 @@ def phase_mesh(torch, kernels, render, params, aux, camera, gt_camera, bank, sce
                                  f"gradients {grad_err}")
         del g, want
 
-        # The five kernels on the slab's own arguments.
+        # The six kernels on the slab's own arguments.
         slab_errs = check_backward_kernels(
             kernels, slab_calls, dict.fromkeys(kernels.KERNEL_NAMES, 0.0), "mesh slab")
         slab_errs = {k: v[0] for k, v in slab_errs.items()}
@@ -2282,7 +2266,8 @@ def phase_viewer(torch, kernels, render, scene, model_cfg, views):
         raise AssertionError("viewer: a frame wrote the training state")
     n_frames = len(served)
     per_frame = {k: launches[k] / n_frames for k in FORWARD_KERNELS}
-    expected = {"composite_forward": 1, "rank_prefix": 1, "row_engine": (0, 1)}
+    expected = {"composite_forward": 1, "rank_prefix": 1, "row_engine": (0, 1),
+                "row_gather": 2}
     if any(per_frame[k] not in (v if isinstance(v, tuple) else (v,))
            for k, v in expected.items()):
         raise AssertionError(f"viewer: launches per frame {per_frame}")
@@ -2761,7 +2746,7 @@ def eval_timing(torch, trainer) -> dict:
 def profile_dir_trace(kernels, trainer) -> dict:
     """The trainer's --profile_dir session: the kernel events of the Chrome
     trace it exported against the launches it recorded for the windows the
-    session covered, kernel by kernel (tools/common.check_whole); all five
+    session covered, kernel by kernel (tools/common.check_whole); all six
     main kernels must be in it."""
     from gsjax_torch.tools import trace
     from gsjax_torch.tools.common import check_whole, kernel_events
@@ -2813,7 +2798,7 @@ def phase_trainer(torch, kernels, render, params, resume_bitwise, lpips_weights)
     the captures' counts times the replays. The straight run writes
     gsjax's --profile_dir trace of steps 100-110: its kernel events must
     equal, kernel by kernel, the launches the trainer recorded for the
-    windows the session covered, and hold all five main kernels. Last,
+    windows the session covered, and hold all six main kernels. Last,
     tools.bench_trained on the straight run's PLY."""
     import json
     import os
@@ -2934,6 +2919,7 @@ def main() -> int:
     from gsjax_torch.tools.common import (
         cuda_ms, device_ms, instance_stream, profile_table, with_refused,
     )
+    from gsjax_torch.tools.probe_prims import gather_bytes
 
     dev = torch.device("cuda")
     smi = phase_device()
@@ -3129,6 +3115,17 @@ def main() -> int:
             start, _ = args[:2]
             nbytes = start.numel() * 4 * 2 + kw["budget"] * 4
             flops = kw["budget"] * 4
+        elif name == "row_gather":
+            src, idx = args
+            nbytes = gather_bytes(idx, src.shape[1])
+            flops = 0
+            extra["shape"] = f"({src.shape[0]},{src.shape[1]})@{idx.shape[0]}"
+            # The yardstick: the library's gather at the same indices, and
+            # at the int64 copy of them the render path took before.
+            library_ms = cuda_ms(lambda: torch.index_select(src, 0, idx), reps=20,
+                                 warmup=2)
+            extra["library_int64_ms"] = cuda_ms(
+                lambda: torch.index_select(src, 0, idx.long()), reps=20, warmup=2)
         else:
             vals, gm_start = args
             lo, hi = int(gm_start[0]), int(gm_start[-1])

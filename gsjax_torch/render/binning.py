@@ -67,20 +67,20 @@ def depth_order(depth: torch.Tensor) -> torch.Tensor:
 class _PermuteRows(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, perm):
-        perm = perm.long()
         ctx.save_for_backward(perm)
-        return x.index_select(0, perm)
+        return kernels.row_gather(x.contiguous(), perm)
 
     @staticmethod
     def backward(ctx, ct):
         (perm,) = ctx.saved_tensors
         inverse = torch.empty_like(perm)
-        inverse[perm] = torch.arange(perm.shape[0], device=perm.device)
-        return ct.index_select(0, inverse), None
+        inverse[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+        return kernels.row_gather(ct.contiguous(), inverse), None
 
 
 def permute_rows(x: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
-    """Rows of x in the order of the permutation perm.
+    """Rows of x (N, W) f32, W in kernels.GATHER_WIDTHS, in the order of
+    the permutation perm (int32 or int64), by kernels.row_gather.
 
     A permutation's cotangent map is itself a permutation, so the backward
     is a row gather through the inverse permutation (one collision-free

@@ -50,10 +50,14 @@ def build_inst_data(
     fields: torch.Tensor, sorted_owner: torch.Tensor
 ) -> torch.Tensor:
     """Gather depth-ordered per-Gaussian fields [N, N_FIELDS] into the
-    tile-sorted instance stream (P, ROWS); dead slots (owner == N) read a
-    zero row whose opacity 0 makes them no-ops."""
+    tile-sorted instance stream (P, ROWS) with one row gather
+    (kernels.row_gather, at binning's int32 owners); dead slots (owner ==
+    N) read a zero row whose opacity 0 makes them no-ops."""
+    # Imported here: kernels imports tiled, which imports this module.
+    from gsjax_torch.render import kernels
+
     padded = torch.nn.functional.pad(fields, (0, ROWS - N_FIELDS, 0, 1))
-    return padded.index_select(0, sorted_owner.long())
+    return kernels.row_gather(padded, sorted_owner)
 
 
 def untile_image(

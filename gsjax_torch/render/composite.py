@@ -55,14 +55,14 @@ def composite_cotangent(d_color, d_t, tile_color, tile_t) -> torch.Tensor:
 
 def owner_sums(inst_grads, sorted_slot, gm_start) -> torch.Tensor:
     """Per-Gaussian [N, N_FIELDS] sums of the tile-order instance gradients
-    (P, ROWS). sorted_slot maps each tile-order slot to its expansion-order
-    slot and is a permutation, so its inverse is one collision-free
-    scatter; one row gather then regroups the grads by owner, and
-    segment_sum adds each owner's run."""
-    slot = sorted_slot.long()
-    inverse = torch.empty_like(slot)
-    inverse[slot] = torch.arange(slot.shape[0], device=slot.device)
-    vals = inst_grads.index_select(0, inverse)
+    (P, ROWS). sorted_slot (int32) maps each tile-order slot to its
+    expansion-order slot and is a permutation, so its int32 inverse is one
+    collision-free scatter; one row gather (kernels.row_gather) then
+    regroups the grads by owner, and segment_sum adds each owner's run."""
+    inverse = torch.empty_like(sorted_slot)
+    inverse[sorted_slot] = torch.arange(
+        sorted_slot.shape[0], dtype=sorted_slot.dtype, device=sorted_slot.device)
+    vals = kernels.row_gather(inst_grads, inverse)
     return kernels.segment_sum(vals, gm_start)[:, :N_FIELDS]
 
 

@@ -10,15 +10,23 @@ its backward (gsjax/render/pallas_kernels.py):
   composite_backward  <- composite_backward_pallas  (csrc/composite_backward.cu)
   segment_sum         <- segment_sum_pallas         (csrc/segment_sum.cu)
 
+and the row gather of the JAX package's profiling tools
+(tools/probe_prims.py::pallas_row_gather, csrc/row_gather.cu), which
+carries the render path's budget- and capacity-sized row gathers: the
+depth permute of the (N, 12) fields and its backward
+(binning.permute_rows), the (P, 16) instance stream
+(common.build_inst_data) and the backward's owner regroup
+(composite.owner_sums). It takes binning's int32 indices as they are.
+
 The two composite kernels take their walks from the same header
 (csrc/composite_walk.cuh) and are built with the same flags, so the
 backward replays the forward's skip and termination decisions bit for bit.
 Each warp of theirs covers a compact block of its tile's pixels and culls
 the rows none of its pixels can take (tiled.footprint_box; the forward on
 tiles of 512 pixels or more), without changing a bit of the output. The library also holds the profiling tools'
-kernels (row_gather.cu, composite_probes.cu: the probes and the two
-composite kernels' reference twins without the cull), whose wrappers are
-in gsjax_torch/tools/kernels.py.
+kernels (composite_probes.cu: the probes and the two composite kernels'
+reference twins without the cull), whose wrappers are in
+gsjax_torch/tools/kernels.py.
 
 Each wrapper dispatches on the device of its tensors: a CUDA tensor
 launches the kernel (or raises), a CPU tensor runs the plain version of the
@@ -71,7 +79,7 @@ SOURCES = {
 
 KERNEL_NAMES = (
     "composite_forward", "row_engine", "rank_prefix", "composite_backward",
-    "segment_sum",
+    "segment_sum", "row_gather",
 )
 launch_counts = {name: 0 for name in KERNEL_NAMES}
 
@@ -163,14 +171,14 @@ def library() -> ctypes.CDLL:
         lib.gsjt_row_engine_scratch_words.restype = ctypes.c_longlong
         lib.gsjt_rank_prefix.argtypes = [p, i, p, i, i, i, p, p]
         lib.gsjt_segment_sum.argtypes = [p, p, p, i, p]
+        lib.gsjt_row_gather.argtypes = [p, p, i, p, ctypes.c_longlong, i, p]
         # The profiling tools' kernels (gsjax_torch/tools/kernels.py).
-        lib.gsjt_row_gather.argtypes = [p, p, i, p, i, i, p]
         lib.gsjt_outpath.argtypes = [p, p, p, p, p, i, i, i, i, i, p]
         lib.gsjt_blockout.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gsjt_variant.argtypes = [p, i, p, p, p, i, i, i, i, i, ctypes.c_float, p]
         lib.gsjt_composite_forward_nocull.argtypes = [p, p, p, p, i, i, i, i, p]
         lib.gsjt_composite_backward_nocull.argtypes = [p, p, p, p, i, i, i, i, p]
-        for name in (*KERNEL_NAMES, "row_gather", "outpath", "blockout", "variant",
+        for name in (*KERNEL_NAMES, "outpath", "blockout", "variant",
                      "composite_forward_nocull", "composite_backward_nocull"):
             getattr(lib, f"gsjt_{name}").restype = ctypes.c_int
         _lib = lib
@@ -366,6 +374,43 @@ def segment_sum(vals: torch.Tensor, gm_start: torch.Tensor) -> torch.Tensor:
         vals.data_ptr(), gm_start.data_ptr(), out.data_ptr(), n, current_stream(),
     )
     _check("segment_sum", err)
+    return out
+
+
+# --- row_gather --------------------------------------------------------------
+
+GATHER_WIDTHS = (1, 8, 12, 16)
+
+
+def row_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return src.index_select(0, idx.long())
+
+
+def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[i] = src[idx[i]]: rows of src (N, W) f32, W in GATHER_WIDTHS, at
+    idx (P,) int32 or int64, each in [0, N) (not checked on the card).
+    Returns (P, W) f32. Other widths and index types raise on either
+    device."""
+    n, w = src.shape
+    if w not in GATHER_WIDTHS:
+        raise ValueError(f"row_gather: width {w} not in {GATHER_WIDTHS}")
+    if idx.dtype not in (torch.int32, torch.int64):
+        raise TypeError(f"row_gather: indices must be int32 or int64, got {idx.dtype}")
+    if not route("row_gather", src, idx):
+        return row_gather_plain(src, idx)
+    require("row_gather src", src, torch.float32, (n, w))
+    p = idx.shape[0]
+    require("row_gather idx", idx, idx.dtype, (p,))
+    if w % 4 == 0 and src.data_ptr() % 16:
+        raise ValueError("row_gather: src must be 16-byte aligned")
+    out = torch.empty((p, w), dtype=torch.float32, device=src.device)
+    if p == 0:
+        return out
+    err = library().gsjt_row_gather(
+        src.data_ptr(), idx.data_ptr(), idx.element_size(), out.data_ptr(), p,
+        w, current_stream(),
+    )
+    _check("row_gather", err)
     return out
 
 

@@ -35,6 +35,8 @@ As in render/kernels.py, each wrapper dispatches on the device of its
 tensors (CUDA: the kernel or an error; CPU: the plain version of the same
 name with a `_plain` suffix) and each launch adds one to
 `launch_counts[name]`. The kernels live in the render path's library.
+row_gather carries the render path's row gathers too, so its wrapper,
+plain version and launch counter are render/kernels.py's, named here.
 """
 
 from __future__ import annotations
@@ -44,13 +46,20 @@ import torch
 from gsjax_torch.render import kernels as render_kernels
 from gsjax_torch.render import tiled
 from gsjax_torch.render.common import ROW_MX, ROW_R
-from gsjax_torch.render.kernels import current_stream, library, require, route
+from gsjax_torch.render.kernels import (  # noqa: F401  (the tools' names)
+    GATHER_WIDTHS,
+    current_stream,
+    library,
+    require,
+    route,
+    row_gather,
+    row_gather_plain,
+)
 
-KERNEL_NAMES = ("row_gather", "outpath", "blockout", "variant",
+KERNEL_NAMES = ("outpath", "blockout", "variant",
                 "composite_forward_nocull", "composite_backward_nocull")
 launch_counts = {name: 0 for name in KERNEL_NAMES}
 
-GATHER_WIDTHS = (1, 8, 16)
 OUTPATH_VARIANTS = ("ship", "notrans")
 # The forward's most strips a tile (csrc/composite_walk.cuh kMaxStrips):
 # outpath "notrans" keeps a partial sum per strip.
@@ -88,42 +97,6 @@ def _geometry(n_tiles, tiles_x, tile_w, tile_h) -> dict:
 def _stream_args(name, inst, tile_start, n_tiles):
     require(f"{name} inst", inst, torch.float32, (inst.shape[0], 16))
     require(f"{name} tile_start", tile_start, torch.int32, (n_tiles + 1,))
-
-
-# --- row_gather ---------------------------------------------------------------
-
-
-def row_gather_plain(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    return src.index_select(0, idx.long())
-
-
-def row_gather(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """out[i] = src[idx[i]]: rows of src (N, W) f32, W in GATHER_WIDTHS, at
-    idx (P,) int32 or int64, each in [0, N) (not checked on the card).
-    Returns (P, W) f32."""
-    if not route("row_gather", src, idx):
-        return row_gather_plain(src, idx)
-    n, w = src.shape
-    require("row_gather src", src, torch.float32, (n, w))
-    if w not in GATHER_WIDTHS:
-        raise ValueError(f"row_gather: width {w} not in {GATHER_WIDTHS}")
-    if idx.dtype not in (torch.int32, torch.int64):
-        raise TypeError(f"row_gather: indices must be int32 or int64, got {idx.dtype}")
-    p = idx.shape[0]
-    require("row_gather idx", idx, idx.dtype, (p,))
-    if p * w >= 2**31:
-        raise ValueError(f"row_gather: {p} x {w} floats exceed 2^31")
-    if w % 4 == 0 and src.data_ptr() % 16:
-        raise ValueError("row_gather: src must be 16-byte aligned")
-    out = torch.empty((p, w), dtype=torch.float32, device=src.device)
-    if p == 0:
-        return out
-    err = library().gsjt_row_gather(
-        src.data_ptr(), idx.data_ptr(), idx.element_size(), out.data_ptr(), p,
-        w, current_stream(),
-    )
-    _check("row_gather", err)
-    return out
 
 
 # --- outpath and blockout: the forward with other outputs ----------------------

@@ -9,7 +9,8 @@ per-Gaussian sums (N, 9):
      library's index_select and by the hand-written row_gather kernel;
   g. the per-owner sums: the segment_sum kernel, and the library's
      segment_reduce computing the same sums;
-  h. owner_sums end to end (a + index_select + segment_sum).
+  h. owner_sums end to end (a at int32 + the row_gather kernel +
+     segment_sum).
 The JAX package's pieces b, d, e and f are transposes between its
 (16, P) layout and the gather's (P, 16) rows; the port keeps its rows
 (P, 16) throughout, so they have no counterpart and are not timed.

@@ -5,7 +5,8 @@ Gaussians). The counterpart of the JAX package's tools/probe_prims.py:
   - row gathers of (N,16), (N,8) and (N,1) rows at P and of (N,16) rows
     at R: the library's index_select and the hand-written row_gather,
     each with int32 and int64 indices, and the int32 -> int64 index
-    conversion the port's gathers pay (index_select(idx.long()));
+    conversion that an index_select at int32 indices pays
+    (index_select(idx.long()));
   - scatter-adds (index_add_): one column N -> R and R -> P, (R, 2) rows
     -> P;
   - cumsums: int32 at P, uint32 bits at P (in int64, wrapped to 32 bits,

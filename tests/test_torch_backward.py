@@ -6,6 +6,9 @@
   (transposed at the boundary: gsjax keeps (16, P), the port (P, 16)).
 - The plain segment sum against segment_sum_pallas in interpret mode.
 - permute_rows' backward against index_select's.
+- The render path's row gathers (build_inst_data, owner_sums, permute_rows
+  forward and backward) against the index_select forms they replace, on
+  gsjax's own binning of the scene: the same tensors, bit for bit.
 - The port's render gradients (all six raw parameters and mean2d_offset)
   against gsjax's jax.grad of render (Pallas, interpret) and of
   render_oracle, scaled by max|g| at atol 5e-3 as tests/test_renderer.py
@@ -33,8 +36,10 @@ from gsjax.render.pallas_kernels import (
 from gsjax.render.preprocess import preprocess
 from gsjax_torch.config import RasterConfig
 from gsjax_torch.model import PARAM_NAMES
+from gsjax_torch.render import common as tcommon
 from gsjax_torch.render import kernels
 from gsjax_torch.render.binning import permute_rows
+from gsjax_torch.render.composite import owner_sums
 from tests.scene_utils import look_at_origin_camera, random_scene
 from tests.torch_parity import n, scaled_close, t, to_torch_camera, to_torch_params
 
@@ -120,6 +125,9 @@ def kernel_inputs(scene):
         perm=perm,
     )
     inst = np.array(build_inst_data(fields, binning.sorted_owner))  # (16, P)
+    gathers = dict(fields=t(fields), inst=t(inst.T.copy()),
+                   **{k: t(getattr(binning, k)) for k in (
+                       "perm", "sorted_owner", "sorted_slot", "gm_start")})
     tile_start = np.asarray(binning.tile_start)
     tiles_x, tiles_y = num_tiles(H, W, 16)
     geo = dict(n_tiles=tiles_x * tiles_y, tiles_x=tiles_x, tile_w=16, tile_h=16)
@@ -136,7 +144,8 @@ def kernel_inputs(scene):
     d_t = rng.standard_normal((geo["n_tiles"], 256)).astype(np.float32)
     suffix0 = (d_color * n(color)).sum(-1) + d_t * n(trans)
     cot = np.concatenate([d_color, suffix0[..., None]], axis=-1)  # (T, PIX, 4)
-    return dict(rows=rows, tile_start=tile_start, cot=cot, geo=geo, capped=k)
+    return dict(rows=rows, tile_start=tile_start, cot=cot, geo=geo, capped=k,
+                gathers=gathers)
 
 
 def test_plain_composite_backward_matches_pallas(kernel_inputs):
@@ -185,6 +194,38 @@ def test_permute_rows_backward_equals_index_select():
     (got,) = torch.autograd.grad(permute_rows(x, perm), x, ct)
     (want,) = torch.autograd.grad(x.index_select(0, perm.long()), x, ct)
     assert torch.equal(got, want)
+
+
+def test_render_path_gathers_equal_their_index_select_forms(kernel_inputs):
+    """build_inst_data, owner_sums and permute_rows (forward and backward)
+    on gsjax's binning (int32 indices) return what their index_select forms
+    at int64 indices returned: the instance stream equals gsjax's too."""
+    g = kernel_inputs["gathers"]
+    assert all(g[k].dtype == torch.int32 for k in ("perm", "sorted_owner", "sorted_slot"))
+    fields, owner = g["fields"], g["sorted_owner"]
+    inst = tcommon.build_inst_data(fields, owner)
+    padded = torch.nn.functional.pad(fields, (0, 16 - tcommon.N_FIELDS, 0, 1))
+    assert torch.equal(inst, padded.index_select(0, owner.long()))
+    assert torch.equal(inst, g["inst"])
+
+    grads = torch.randn(inst.shape, generator=torch.Generator().manual_seed(5))
+    slot = g["sorted_slot"].long()
+    inverse = torch.empty_like(slot)
+    inverse[slot] = torch.arange(slot.shape[0])
+    want = kernels.segment_sum_plain(grads.index_select(0, inverse), g["gm_start"])
+    assert torch.equal(owner_sums(grads, g["sorted_slot"], g["gm_start"]),
+                       want[:, :tcommon.N_FIELDS])
+
+    perm = g["perm"]
+    x = torch.randn((perm.shape[0], 12), generator=torch.Generator().manual_seed(6))
+    ct = torch.randn(x.shape, generator=torch.Generator().manual_seed(7))
+    got_x, want_x = x.clone().requires_grad_(), x.clone().requires_grad_()
+    got = permute_rows(got_x, perm)
+    want = want_x.index_select(0, perm.long())
+    assert torch.equal(got, want)
+    got.backward(ct)
+    want.backward(ct)
+    assert torch.equal(got_x.grad, want_x.grad)
 
 
 @pytest.mark.parametrize(

@@ -275,13 +275,16 @@ def test_composite_kernels_equal_nocull_twins(card, cfg, monkeypatch):
 
 def test_render_on_card_matches_cpu(card):
     """Forward and backward on the card against the CPU's plain versions;
-    each of the five kernels launches once."""
+    each of the five composite and binning kernels launches once, the row
+    gather four times (the fields' depth permute and its backward, the
+    instance stream, the owner regroup)."""
     cfg = CFGS["16x16"]
     cpu, cpu_grads = _render_grads("cpu", cfg)
     kernels.reset_launch_counts()
     out, grads = _render_grads(card, cfg)
     torch.cuda.synchronize()
-    assert all(kernels.launch_counts[k] == 1 for k in kernels.KERNEL_NAMES)
+    assert kernels.launch_counts == {**dict.fromkeys(kernels.KERNEL_NAMES, 1),
+                                     "row_gather": 4}
     assert int(out.num_instances) == int(cpu.num_instances)
     assert int(out.num_rows) == int(cpu.num_rows)
     np.testing.assert_allclose(
@@ -397,12 +400,42 @@ def test_outpath_and_blockout_match_plain(card, tool_stream, variant):
         np.testing.assert_allclose(got_x.cpu().numpy(), want_x.numpy(), atol=2e-3)
 
 
-@pytest.mark.parametrize("width", tool_kernels.GATHER_WIDTHS)
+def _budget_index(rng, n: int, p: int) -> np.ndarray:
+    """A binning-shaped index into N + 1 rows: about 66 % of the P slots at
+    the zero pad row N (a budget's dead slots), the rest a random
+    permutation of rows."""
+    idx = np.full(p, n, np.int64)
+    live = rng.choice(p, size=p // 3, replace=False)
+    idx[live] = rng.permutation(n)[:live.size]
+    return idx
+
+
+@pytest.mark.parametrize("width", kernels.GATHER_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
-def test_row_gather_matches_plain(card, width, dtype):
+@pytest.mark.parametrize("index", ["random", "budget"])
+def test_row_gather_matches_plain(card, width, dtype, index):
+    """The render path's row gather against index_select, bit for bit, at
+    any P: random rows, or a budget's index (mostly the pad row)."""
     rng = np.random.default_rng(width)
-    src = torch.from_numpy(rng.standard_normal((5000, width)).astype(np.float32))
-    idx = torch.from_numpy(rng.integers(0, 5000, 12_345)).to(dtype)  # any P
-    want = tool_kernels.row_gather_plain(src, idx)
-    got = tool_kernels.row_gather(src.to(card), idx.to(card)).cpu()
+    src = torch.from_numpy(rng.standard_normal((5001, width)).astype(np.float32))
+    idx = (rng.integers(0, 5001, 12_345) if index == "random"
+           else _budget_index(rng, 5000, 12_345))
+    idx = torch.from_numpy(idx).to(dtype)
+    want = kernels.row_gather_plain(src, idx)
+    kernels.reset_launch_counts()
+    got = kernels.row_gather(src.to(card), idx.to(card)).cpu()
+    assert kernels.launch_counts["row_gather"] == 1
     assert torch.equal(got, want)
+
+
+def test_row_gather_offsets_pass_2_to_the_31(card):
+    """A (P, 16) gather whose P * 16 floats pass 2^31 (P = 2^27 + 5, 8 GiB
+    out): its offsets are 64-bit, and every row equals index_select's."""
+    p = (1 << 27) + 5
+    gen = torch.Generator(device=card).manual_seed(0)
+    src = torch.randn((4097, 16), generator=gen, device=card)
+    idx = torch.randint(0, 4097, (p,), generator=gen, device=card, dtype=torch.int32)
+    got = kernels.row_gather(src, idx)
+    assert p * 16 > 2**31
+    assert torch.equal(got, src.index_select(0, idx))
+    assert torch.equal(got[-5:], src[idx[-5:].long()])

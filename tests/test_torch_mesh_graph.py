@@ -137,6 +137,7 @@ def test_mesh_graph_equals_eager_loop_on_card(nccl_mesh):
     assert len(steps_mod.captures) == 1 and len(steps_mod._GRAPHS) == 1
     per_replay = steps_mod.captures[0]["launches"]
     assert all(per_replay[k] > 0 for k in kernels.KERNEL_NAMES)
+    assert per_replay["row_gather"] == 4
     assert steps_mod.replayed_launch_counts == {k: n * WINDOW for k, n in per_replay.items()}
     assert g.params.xyz.data_ptr() == held.params.xyz.data_ptr()
     if eager_bitwise:

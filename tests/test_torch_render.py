@@ -160,3 +160,40 @@ def test_cpu_render_runs_the_plain_versions(scene):
     kernels.reset_launch_counts()
     _render(scene)
     assert all(v == 0 for v in kernels.launch_counts.values())
+
+
+@pytest.mark.parametrize("width", kernels.GATHER_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int64])
+def test_row_gather_routes_cpu_tensors_to_index_select(width, dtype):
+    """On CPU tensors the render path's row gather is index_select, with no
+    launch counted."""
+    gen = torch.Generator().manual_seed(width)
+    src = torch.randn((300, width), generator=gen)
+    idx = torch.randint(0, 300, (517,), generator=gen).to(dtype)
+    kernels.reset_launch_counts()
+    got = kernels.row_gather(src, idx)
+    assert kernels.launch_counts["row_gather"] == 0
+    assert torch.equal(got, src.index_select(0, idx.long()))
+    assert torch.equal(kernels.row_gather_plain(src, idx), got)
+
+
+@pytest.mark.parametrize("case", ["width", "index_dtype"])
+def test_row_gather_rejects_other_widths_and_index_dtypes(case):
+    """Widths outside GATHER_WIDTHS and indices other than int32 / int64
+    raise on either device, as the tools' wrapper raised on the card."""
+    src = torch.zeros((10, 5 if case == "width" else 16))
+    idx = torch.zeros(4, dtype=torch.int32 if case == "width" else torch.int16)
+    with pytest.raises(ValueError if case == "width" else TypeError, match="row_gather"):
+        kernels.row_gather(src, idx)
+
+
+def test_tools_row_gather_is_the_render_paths():
+    """The tools' row_gather names the render path's wrapper, its plain
+    version and widths: one counter, render/kernels.py's."""
+    from gsjax_torch.tools import kernels as tool_kernels
+
+    assert tool_kernels.row_gather is kernels.row_gather
+    assert tool_kernels.row_gather_plain is kernels.row_gather_plain
+    assert tool_kernels.GATHER_WIDTHS == kernels.GATHER_WIDTHS == (1, 8, 12, 16)
+    assert "row_gather" in kernels.KERNEL_NAMES
+    assert "row_gather" not in tool_kernels.launch_counts

@@ -343,6 +343,34 @@ def test_render_set_grows_on_card(card, monkeypatch, tmp_path):
 
 
 @pytest.mark.cuda
+def test_replays_launch_the_row_gather_on_card(card):
+    """Counted through executed_launches: a replayed training step launches
+    the row gather four times (the fields' depth permute and its backward,
+    the instance stream, the owner regroup), a replayed view twice."""
+    from gsjax_torch.render import kernels
+
+    windows = probe_frame.Windows(card)
+    cams = torch.tensor(probe_frame.WINDOW, dtype=torch.int32)
+    bgs = torch.zeros((len(probe_frame.WINDOW), 3))
+    steps_mod.drop_step_graphs()
+    steps_mod.train_steps(windows.state, windows.bank, cams, bgs, **windows.kw)
+    windows.frame()  # the captures
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    graph_mod.reset_graph_counts()
+    steps_mod.train_steps(windows.state, windows.bank, cams, bgs, **windows.kw)
+    torch.cuda.synchronize()
+    assert graph_mod.executed_launches()["row_gather"] == 4 * len(probe_frame.WINDOW)
+    kernels.reset_launch_counts()
+    graph_mod.reset_graph_counts()
+    windows.frame()
+    torch.cuda.synchronize()
+    assert not graph_mod.captures
+    assert graph_mod.executed_launches()["row_gather"] == 2
+    steps_mod.drop_step_graphs()
+
+
+@pytest.mark.cuda
 def test_frame_between_windows_on_card(card):
     """A viewer frame (a replayed fast render of the training state)
     between two windows of replayed steps leaves the captured step in its
