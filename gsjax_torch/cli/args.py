@@ -45,7 +45,10 @@ def add_group(parser: ArgumentParser, cfg_cls, fill_none: bool = False) -> None:
         if f.type in ("bool", bool):
             parser.add_argument(*names, action="store_true", default=default)
         else:
-            ty = {"int": int, "float": float, "str": str}.get(f.type, type(f.default))
+            # A field whose default is None (resolved by its dataclass) takes
+            # the type it is annotated with.
+            ty = {"int": int, "float": float, "str": str}.get(
+                f.type.removesuffix(" | None"), type(f.default))
             parser.add_argument(*names, type=ty, default=default)
 
 

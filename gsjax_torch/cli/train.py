@@ -19,7 +19,13 @@ Rank 0 alone writes the model directory, prints and serves the viewer.
 An in-process caller may pass main() the Trainer's starting RasterConfig
 (pre-sized budgets, as gsjax's tools/quality_run.py hands its Trainer)
 and the seed of the densify split noise (`split_seed`, default gsjax's
-0); the command line has no such flags, as gsjax's has none."""
+0); the command line has no such flags, as gsjax's has none.
+
+`--densify_strategy mcmc --cap_max N` trains with 3DGS-MCMC's density
+control (train/mcmc.py) on one device, with its published constants
+(`--noise_lr`, `--opacity_reg`, `--scale_reg`) and densify_until_iter
+25,000 unless `--densify_until_iter` is given (OptimizationConfig's
+default by strategy)."""
 
 from __future__ import annotations
 

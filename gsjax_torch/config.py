@@ -2,7 +2,8 @@
 
 The same groups, fields and defaults as `gsjax.config` (the published 3DGS
 recipe, reference: arguments/__init__.py:47-90), minus `RasterConfig.interpret`:
-the port runs its kernels on the device its tensors lie on.
+the port runs its kernels on the device its tensors lie on. OptimizationConfig
+adds the 3DGS-MCMC fields (MCMC_FIELDS), which gsjax lacks.
 """
 
 from __future__ import annotations
@@ -75,9 +76,44 @@ class OptimizationConfig:
     densification_interval: int = 100
     opacity_reset_interval: int = 3000
     densify_from_iter: int = 500
-    densify_until_iter: int = 15_000
+    # None: the strategy's own, 15,000 under "adaptive" (the published
+    # recipe) and 25,000 under "mcmc" (3dgs-mcmc's configs); resolved on
+    # construction, so dataclasses.replace keeps the resolved value.
+    densify_until_iter: int | None = None
     densify_grad_threshold: float = 0.0002
     random_background: bool = False
+    # Density control: "adaptive" is the published clone / split / prune
+    # with opacity resets; "mcmc" is 3DGS-MCMC (Kheradmand et al., NeurIPS
+    # 2024; train/mcmc.py): relocation of the dead Gaussians and growth up
+    # to cap_max at the densify boundaries, SGLD position noise on every
+    # step (noise_lr) and the opacity and scale regularizers in the loss.
+    # The MCMC fields are the port's own: gsjax has no such flags.
+    densify_strategy: str = "adaptive"
+    cap_max: int = 1_000_000
+    noise_lr: float = 5e5
+    opacity_reg: float = 0.01
+    scale_reg: float = 0.01
+
+    def __post_init__(self) -> None:
+        if self.densify_strategy not in DENSIFY_STRATEGIES:
+            raise ValueError(f"densify_strategy must be one of {DENSIFY_STRATEGIES}, "
+                             f"not {self.densify_strategy!r}")
+        if self.densify_strategy == "mcmc" and self.cap_max < 1:
+            raise ValueError(f"cap_max must be positive, not {self.cap_max}")
+        if self.densify_until_iter is None:
+            object.__setattr__(self, "densify_until_iter",
+                               DENSIFY_UNTIL_ITER[self.densify_strategy])
+
+    @property
+    def mcmc(self) -> bool:
+        return self.densify_strategy == "mcmc"
+
+
+DENSIFY_STRATEGIES = ("adaptive", "mcmc")
+# Each strategy's densify_until_iter where none is given.
+DENSIFY_UNTIL_ITER = {"adaptive": 15_000, "mcmc": 25_000}
+# OptimizationConfig's fields that gsjax's lacks (its flags, too).
+MCMC_FIELDS = ("densify_strategy", "cap_max", "noise_lr", "opacity_reg", "scale_reg")
 
 
 @dataclasses.dataclass(frozen=True)

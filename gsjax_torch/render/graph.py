@@ -98,13 +98,18 @@ def uses_graphs(device: torch.device) -> bool:
     return device.type == "cuda"
 
 
-def capture_graph(body, device: torch.device, record: dict, warm_up=None):
+def capture_graph(body, device: torch.device, record: dict, warm_up=None, generators=()):
     """Capture body() once as a torch.cuda.CUDAGraph, torch's whole-network
     recipe: warm_up() (by default WARMUP_RUNS runs of body) eagerly on a
     side stream first, then the capture, which runs nothing. Appends
     `record` with the warm-up and capture ms, the bytes the graph's memory
     pool took and the launches it recorded to `captures`. Returns (graph,
-    {kernel: launches per replay}). A capture error propagates."""
+    {kernel: launches per replay}). A capture error propagates.
+
+    `generators`: the CUDA generators body draws from other than the
+    device's default (which every capture registers): each is registered
+    with the graph, so every replay draws at the generator's offset then
+    and advances it, as an eager run of body would."""
     t0 = time.perf_counter()
     side = torch.cuda.Stream(device=device)
     side.wait_stream(torch.cuda.current_stream(device))
@@ -123,6 +128,8 @@ def capture_graph(body, device: torch.device, record: dict, warm_up=None):
     before = dict(kernels.launch_counts)
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
+    for g in generators:
+        graph.register_generator_state(g)
     with torch.cuda.graph(graph):
         body()
     torch.cuda.synchronize(device)

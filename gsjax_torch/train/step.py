@@ -37,6 +37,7 @@ from gsjax_torch.render.graph import (  # noqa: F401  (the graphs' accounting, s
     replayed_launch_counts,
     reset_graph_counts,
 )
+from gsjax_torch.train import mcmc
 from gsjax_torch.train.densify import add_densification_stats
 from gsjax_torch.train.loss import l1_loss, ssim
 from gsjax_torch.train.optimizer import AdamState, adam_update, make_lr_tree
@@ -112,6 +113,7 @@ def train_step(
     opt_cfg: OptimizationConfig,
     raster_cfg: RasterConfig,
     spatial_lr_scale: float,
+    generator: torch.Generator | None = None,
 ) -> tuple[TrainState, StepMetrics]:
     """One optimization iteration on one view.
 
@@ -121,6 +123,9 @@ def train_step(
       camera: the view.
       gt_image: [3,H,W] f32 ground truth in [0, 1].
       bg: [3] background for this step.
+      generator: under opt_cfg's "mcmc" strategy, the source of the
+        position noise (the device's default generator when None); unused
+        otherwise.
     """
     params = state.params
     offset = torch.zeros(
@@ -134,6 +139,9 @@ def train_step(
     l1 = l1_loss(out.image, gt_image)
     lam = opt_cfg.lambda_dssim
     loss = (1.0 - lam) * l1 + lam * (1.0 - ssim(out.image, gt_image))
+    if opt_cfg.mcmc:
+        loss = loss + mcmc.regularizers(params, state.aux.alive, opt_cfg.opacity_reg,
+                                        opt_cfg.scale_reg)
     leaves = [getattr(params, k) for k in PARAM_NAMES]
     *g_params, g_offset = torch.autograd.grad(loss, [*leaves, offset])
 
@@ -142,6 +150,9 @@ def train_step(
     # In place, under no_grad (inside adam_update): the parameters and the
     # moments are overwritten rather than copied.
     opt = adam_update(dict(zip(PARAM_NAMES, g_params)), state.opt, params, lr_tree)
+    if opt_cfg.mcmc:
+        mcmc.add_position_noise_(params, state.aux.alive, lr_tree["xyz"], opt_cfg.noise_lr,
+                                 generator)
 
     new_state = TrainState(params=params, opt=opt, aux=aux, step=state.step + 1)
     metrics = StepMetrics(
@@ -160,6 +171,7 @@ def _step_core(
     opt_cfg: OptimizationConfig,
     raster_cfg: RasterConfig,
     spatial_lr_scale: float,
+    generator: torch.Generator | None = None,
 ) -> tuple[TrainState, StepMetrics]:
     """One step on view cam_idx ([] int tensor on the bank's device) of a
     CameraBank, picked on the device (gsjax/train/step.py:69-106)."""
@@ -167,6 +179,7 @@ def _step_core(
     return train_step(
         state, camera, gt_image, bg, active_sh_degree=active_sh_degree,
         opt_cfg=opt_cfg, raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale,
+        generator=generator,
     )
 
 
@@ -186,6 +199,7 @@ def scan_steps(
     opt_cfg: OptimizationConfig,
     raster_cfg: RasterConfig,
     spatial_lr_scale: float,
+    generator: torch.Generator | None = None,
 ) -> tuple[TrainState, StepMetrics]:
     """The window as a Python loop of `_step_core` on the state's device
     (the semantics of gsjax's lax.scan); metrics stacked to [W]."""
@@ -196,7 +210,7 @@ def scan_steps(
     for k in range(cam_indices.shape[0]):
         state, m = _step_core(
             state, bank, cam_indices[k], bgs[k], active_sh_degree, opt_cfg,
-            raster_cfg, spatial_lr_scale,
+            raster_cfg, spatial_lr_scale, generator,
         )
         metrics.append(m)
     return state, stack_metrics(metrics)
@@ -212,6 +226,7 @@ def train_steps(
     opt_cfg: OptimizationConfig,
     raster_cfg: RasterConfig,
     spatial_lr_scale: float,
+    generator: torch.Generator | None = None,
 ) -> tuple[TrainState, StepMetrics]:
     """A window of W iterations (gsjax/train/step.py:152-179).
 
@@ -220,10 +235,15 @@ def train_steps(
     state's device. On the card the window replays the captured step
     (`step_graph`) and updates the state's tensors in place; the returned
     state holds the same tensors. On the CPU, and on the card under
-    anomaly detection, it is `scan_steps`.
+    anomaly detection, it is `scan_steps`. generator: the position noise's
+    source under "mcmc" (train_step); the graph advances it on every
+    replay, so step k of a window draws what an eager step would at the
+    generator's offset then.
     """
     kw = dict(active_sh_degree=active_sh_degree, opt_cfg=opt_cfg,
               raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale)
+    if opt_cfg.mcmc:
+        kw["generator"] = generator
     if state.params.device.type != "cuda" or torch.is_anomaly_enabled():
         return scan_steps(state, bank, cam_indices, bgs, **kw)
     return step_graph(state, bank, **kw).run(cam_indices, bgs)
@@ -253,17 +273,19 @@ def _bound_ptrs(state: TrainState, bank) -> tuple[int, ...]:
     return tuple(t.data_ptr() for t in (*state_tensors(state), *bank_tensors))
 
 
-def capture_step(body, state: TrainState, record: dict):
+def capture_step(body, state: TrainState, record: dict, generators=()):
     """Capture body(state) once (render/graph.py's capture_graph), warmed up
-    by WARMUP_RUNS eager runs of body on a copy of the state. Returns
-    (graph, {kernel: launches per replay}). A capture error propagates."""
+    by WARMUP_RUNS eager runs of body on a copy of the state; `generators`
+    are the generators body draws from other than the device's default.
+    Returns (graph, {kernel: launches per replay}). A capture error
+    propagates."""
     def warm_up():
         scratch = clone_state(state)
         for _ in range(WARMUP_RUNS):
             body(scratch)
 
     return capture_graph(lambda: body(state), state.params.device,
-                         {"graph": "step", **record}, warm_up)
+                         {"graph": "step", **record}, warm_up, generators)
 
 
 def register_graph(key: tuple, state: TrainState, make):
@@ -287,17 +309,20 @@ def step_graph(
     opt_cfg: OptimizationConfig,
     raster_cfg: RasterConfig,
     spatial_lr_scale: float,
+    generator: torch.Generator | None = None,
 ) -> "StepGraph":
     """The captured step for this key, captured on first use: the
     counterpart of gsjax's executable key (resolution, capacity, SH
-    degree, configs), plus the addresses of the state's and the bank's
-    tensors, which the graph reads and writes in place. Capturing for a
-    new state drops the graphs bound to another one."""
+    degree, configs), the noise's generator where the step draws one, plus
+    the addresses of the state's and the bank's tensors, which the graph
+    reads and writes in place. Capturing for a new state drops the graphs
+    bound to another one."""
+    drawn = () if generator is None else (generator,)
     key = (bank.width, bank.height, state.params.capacity, active_sh_degree,
-           raster_cfg, opt_cfg, spatial_lr_scale, _bound_ptrs(state, bank))
+           raster_cfg, opt_cfg, spatial_lr_scale, *drawn, _bound_ptrs(state, bank))
     return register_graph(key, state, lambda: StepGraph(
         state, bank, active_sh_degree=active_sh_degree, opt_cfg=opt_cfg,
-        raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale))
+        raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale, generator=generator))
 
 
 class CapturedStep:
@@ -312,13 +337,13 @@ class CapturedStep:
     A capture or replay error propagates.
     """
 
-    def _capture(self, state: TrainState, record: dict) -> None:
+    def _capture(self, state: TrainState, record: dict, generators=()) -> None:
         dev = state.params.device
         self.state = state
         self.cursor = torch.zeros((), dtype=torch.int64, device=dev)
         self.out = {k: torch.zeros(GRAPH_WINDOW, dtype=d, device=dev)
                     for k, d in METRIC_DTYPES.items()}
-        self.graph, self.launches = capture_step(self._body, state, record)
+        self.graph, self.launches = capture_step(self._body, state, record, generators)
 
     def _step(self, state: TrainState) -> tuple[TrainState, StepMetrics]:
         raise NotImplementedError
@@ -358,17 +383,20 @@ class StepGraph(CapturedStep):
 
     def __init__(self, state: TrainState, bank, *, active_sh_degree: int,
                  opt_cfg: OptimizationConfig, raster_cfg: RasterConfig,
-                 spatial_lr_scale: float):
+                 spatial_lr_scale: float, generator: torch.Generator | None = None):
         dev = state.params.device
         self.bank = bank
         self.step_kw = dict(active_sh_degree=active_sh_degree, opt_cfg=opt_cfg,
                             raster_cfg=raster_cfg, spatial_lr_scale=spatial_lr_scale)
+        if generator is not None:
+            self.step_kw["generator"] = generator
         self.cam_buf = torch.zeros(GRAPH_WINDOW, dtype=torch.int32, device=dev)
         self.bg_buf = torch.zeros((GRAPH_WINDOW, 3), dtype=torch.float32, device=dev)
         self._capture(state, dict(
             width=bank.width, height=bank.height, capacity=state.params.capacity,
             active_sh_degree=active_sh_degree,
-            budgets=[raster_cfg.max_instances, raster_cfg.max_rows]))
+            budgets=[raster_cfg.max_instances, raster_cfg.max_rows]),
+            () if generator is None else (generator,))
 
     def _step(self, state: TrainState) -> tuple[TrainState, StepMetrics]:
         at = self.cursor.view(1)

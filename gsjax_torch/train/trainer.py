@@ -37,6 +37,14 @@ Torch specifics:
   every rank makes the same schedule, densify and reset decisions from the
   same seeds. Only rank 0 writes files (PLY, checkpoints, snapshots,
   TensorBoard), evaluates, prints and serves the viewer.
+* Under OptimizationConfig's "mcmc" strategy (3DGS-MCMC, train/mcmc.py)
+  the densify boundaries relocate the dead Gaussians and grow the count
+  towards `cap_max` instead of cloning, splitting and pruning, and no
+  opacity reset runs. The buffers are sized once to hold cap_max (the 3/4
+  rule of the capacity growth) and never grow past it. The position noise
+  and the relocation draw from the Trainer's generator (the densify
+  generator); each relocation leaves a record in `events` with its counts
+  and device ms. The mesh does not run it (ValueError).
 * Not ported: the orbax checkpoint (`use_orbax`, ROADMAP §3); passing it
   raises NotImplementedError.
 """
@@ -65,6 +73,7 @@ from gsjax_torch.parallel.mesh import dim_size
 from gsjax_torch.render.graph import eval_views, executed_launches, render_replayed
 from gsjax_torch.train.checkpoint import load_checkpoint_extra, save_checkpoint
 from gsjax_torch.train.densify import densify_and_prune, reset_opacity
+from gsjax_torch.train.mcmc import capacity_for, relocate_and_grow
 from gsjax_torch.train.optimizer import AdamState, adam_init
 from gsjax_torch.train.step import (
     TrainState,
@@ -146,6 +155,9 @@ class Trainer:
         dev = scene.params.device
         if mesh is not None and mesh.device_type != dev.type:
             raise ValueError(f"a {mesh.device_type} mesh cannot train a scene on {dev}")
+        if mesh is not None and opt_cfg.mcmc:
+            raise ValueError("the mcmc densify strategy runs on one device: the mesh's "
+                             "sharded step has no position noise or relocation")
         # Optional ("data", "tile") DeviceMesh: trains with the mesh-sharded
         # step (gsjax_torch/parallel/step.py) instead of train_steps.
         self.mesh = mesh
@@ -210,6 +222,8 @@ class Trainer:
         self._generator = torch.Generator(device=dev).manual_seed(split_seed)
         if restored_extra:
             self._restore_host_state(restored_extra)
+        if opt_cfg.mcmc:
+            self.state = grow_capacity(self.state, capacity_for(opt_cfg.cap_max))
         # Captured steps of another state or configuration are stale.
         drop_step_graphs()
 
@@ -267,8 +281,9 @@ class Trainer:
         if it < opt.densify_until_iter:
             d = opt.densification_interval
             cands.append((it // d + 1) * d)
-            r = opt.opacity_reset_interval
-            cands.append((it // r + 1) * r)
+            if not opt.mcmc:
+                r = opt.opacity_reset_interval
+                cands.append((it // r + 1) * r)
             cands.append(opt.densify_from_iter)
             cands.append(opt.densify_until_iter)
         cands.extend(e for e in events if e > it)
@@ -503,6 +518,7 @@ class Trainer:
                         opt_cfg=opt,
                         raster_cfg=self.raster_cfg,
                         spatial_lr_scale=self.spatial_lr_scale,
+                        **({"generator": self._generator} if opt.mcmc else {}),
                     )
                     parts.append(m)
                     off += c
@@ -578,8 +594,17 @@ class Trainer:
                 )
                 done("save")
 
-            # Densification (reference: train.py:113-123).
-            if iteration < opt.densify_until_iter:
+            # Densification (reference: train.py:113-123); under "mcmc"
+            # relocation and growth at the same boundaries, no reset
+            # (3dgs-mcmc train.py).
+            if iteration < opt.densify_until_iter and opt.mcmc:
+                if (
+                    iteration > opt.densify_from_iter
+                    and iteration % opt.densification_interval == 0
+                ):
+                    self._relocate(iteration)
+                    done("relocate")
+            elif iteration < opt.densify_until_iter:
                 if (
                     iteration > opt.densify_from_iter
                     and iteration % opt.densification_interval == 0
@@ -725,6 +750,26 @@ class Trainer:
             self.events.append({"grow": iteration, "from": cap, "to": new_cap})
             self._assign(grow_capacity(self.state, new_cap))
         self._post_densify_budget_check(iteration, n_alive)
+
+    def _relocate(self, iteration: int) -> None:
+        """3DGS-MCMC's relocation and growth (train/mcmc.py) on the state's
+        tensors, timed on the device by CUDA events around both."""
+        st = self.state
+        cuda = self.device.type == "cuda"
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        t0 = time.perf_counter()
+        _, counts = relocate_and_grow(st.params, st.aux, st.opt, cap_max=self.opt_cfg.cap_max,
+                                      generator=self._generator)
+        if cuda:
+            ev[1].record()
+            ev[1].synchronize()
+            ms = ev[0].elapsed_time(ev[1])
+        else:
+            ms = (time.perf_counter() - t0) * 1e3
+        self.events.append({"relocate": iteration, **counts, "device_ms": ms})
+        self._post_densify_budget_check(iteration, counts["n_alive"])
 
     def _maybe_adapt_budgets(
         self, iteration: int, peak_inst: int, peak_rows: int

@@ -1,7 +1,9 @@
 """The port's CLIs, image metrics and process utilities on the CPU.
 
 Held to gsjax: the train parser's flags (names, shorthands, defaults;
-`--data_device` defaults to cuda, gsjax's to tpu), the config groups render
+`--data_device` defaults to cuda, gsjax's to tpu; the port's own 3DGS-MCMC
+flags, config.MCMC_FIELDS, apart, and `--densify_until_iter` without a
+default, which OptimizationConfig resolves by strategy), the config groups render
 parses, MSE and PSNR on the same numpy images, the convert and full_eval
 command lines (full_eval launching the port's CLIs), and the synthetic
 quality scene's files. Then the port's own train -> render -> metrics
@@ -43,8 +45,24 @@ def flags(parser: ArgumentParser) -> dict:
             for a in parser._actions}
 
 
+def mcmc_flags(got: dict) -> dict:
+    """Take the port's own 3DGS-MCMC flags out of `got`."""
+    return {k: got.pop(k) for k in config.MCMC_FIELDS}
+
+
+def check_until_flag(got: dict, want: dict) -> None:
+    """Take --densify_until_iter out of both: the port's defaults to None
+    (OptimizationConfig resolves it by strategy, 15,000 under "adaptive"),
+    gsjax's to 15,000 or, filled, None; names, nargs and action alike."""
+    g, w = got.pop("densify_until_iter"), want.pop("densify_until_iter")
+    assert (g[0], g[2], g[3]) == (w[0], w[2], w[3])
+    assert g[1] is None and w[1] in (None, config.OptimizationConfig().densify_until_iter)
+
+
 def test_train_parser_matches_gsjax():
     got, want = flags(args.make_train_parser()), flags(jargs.make_train_parser())
+    assert mcmc_flags(got)["densify_strategy"][:2] == (("--densify_strategy",), "adaptive")
+    check_until_flag(got, want)
     assert got.keys() == want.keys()
     assert got.pop("data_device")[1] == "cuda" and want.pop("data_device")[1] == "tpu"
     assert got == want
@@ -57,6 +75,9 @@ def test_config_group_flags_match_gsjax(group, fill_none):
     args.add_group(got, getattr(config, group), fill_none=fill_none)
     jargs.add_group(want, getattr(jconfig, group), fill_none=fill_none)
     got, want = flags(got), flags(want)
+    if group == "OptimizationConfig":
+        assert set(mcmc_flags(got)) == set(config.MCMC_FIELDS)
+        check_until_flag(got, want)
     if group == "ModelConfig" and not fill_none:
         assert got.pop("data_device")[1] == "cuda" and want.pop("data_device")[1] == "tpu"
     assert got == want

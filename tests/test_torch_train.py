@@ -21,7 +21,7 @@ from gsjax.config import OptimizationConfig as JaxOptimizationConfig
 from gsjax.config import RasterConfig as JaxRasterConfig
 from gsjax.model import GaussianAux as JaxGaussianAux
 from gsjax.scene import CameraBank
-from gsjax_torch.config import OptimizationConfig, RasterConfig
+from gsjax_torch.config import MCMC_FIELDS, OptimizationConfig, RasterConfig
 from gsjax_torch.interop import aux_from_numpy, train_state_from_numpy
 from gsjax_torch.model import PARAM_NAMES
 from gsjax_torch.train import densify, loss, optimizer, schedule
@@ -85,7 +85,9 @@ def test_expon_lr_and_lr_tree_match_gsjax():
                                       lr_delay_mult=0.1)),
         rtol=1e-6,
     )
-    assert dataclasses.asdict(cfg) == dataclasses.asdict(JaxOptimizationConfig())
+    # gsjax's fields alike; the port's own 3DGS-MCMC fields apart.
+    ours = {k: v for k, v in dataclasses.asdict(cfg).items() if k not in MCMC_FIELDS}
+    assert ours == dataclasses.asdict(JaxOptimizationConfig())
     for step in (1, 7000):
         got = optimizer.make_lr_tree(cfg, SPATIAL_LR_SCALE, torch.tensor(step))
         want = jopt.make_lr_tree(JaxOptimizationConfig(), SPATIAL_LR_SCALE,
