@@ -18,9 +18,9 @@ Phases, one JSON line each (any failure exits non-zero):
            indices); row_engine and rank_prefix bit for bit on
            the inputs that break load-balanced designs (case
            expand_adversarial, gsjax_torch/tools/expand_cases.py at card
-           scale); and binning's rank form (600k Gaussians at 1920x1080 in
-           16x16 tiles) against its gather path, with its rank_prefix's
-           device ms and bound
+           scale); and binning's wide route (600k Gaussians at 1920x1080
+           in 16x16 tiles) against its gather path, with its owner
+           expansion's device ms and bound
   oracle   render() and its gradients against the O(N * pixels) oracle
            and its autograd on the card; dead slots' gradients exactly 0
   main     the bench scene (500k Gaussians, SH degree 3, 1920x1080, 32x32
@@ -506,11 +506,12 @@ def expand_adversarial(torch, kernels, dev, errs):
 
 def rank_form_check(torch, kernels, render, RasterConfig, random_scene,
                     look_at_origin_camera, dev, errs):
-    """The rank form of binning level 1, which replaces the row engine when
-    owner and tile bits overflow one 32-bit word: 600k Gaussians (20 bits)
-    at 1920x1080 in 16x16 tiles (13 bits). Binning integers equal the
-    gather path's, rank_prefix equals its plain version, and the render is
-    finite with no overflow."""
+    """Binning's wide route, taken when owner and tile bits overflow one
+    32-bit word: 600k Gaussians (20 bits) at 1920x1080 in 16x16 tiles (13
+    bits). The row engine writes tile-only words and a second rank_prefix
+    expands the owners' run starts. Binning integers equal the gather
+    path's, the owner expansion equals its plain version, and the render
+    is finite with no overflow."""
     from gsjax_torch.render.binning import bin_gaussians
     from gsjax_torch.render.preprocess import preprocess
 
@@ -524,17 +525,17 @@ def rank_form_check(torch, kernels, render, RasterConfig, random_scene,
         out = render(params, cam, active_sh_degree=3, bg_color=bg, cfg=cfg,
                      alive=aux.alive)
     launched = dict(kernels.launch_counts)
-    if launched["row_engine"] or not launched["rank_prefix"]:
-        raise AssertionError(f"rank form not taken: launches {launched}")
+    if (launched["row_engine"], launched["rank_prefix"]) != (1, 2):
+        raise AssertionError(f"wide route not taken: launches {launched}")
     n_inst, n_rows = int(out.num_instances), int(out.num_rows)
     if n_inst > cfg.max_instances or n_rows > cfg.max_rows:
-        raise AssertionError(f"rank form: budget overflow ({n_inst}, {n_rows})")
+        raise AssertionError(f"wide route: budget overflow ({n_inst}, {n_rows})")
     if not bool(torch.isfinite(out.image).all()):
-        raise AssertionError("rank form: non-finite image")
+        raise AssertionError("wide route: non-finite image")
     args, kw = rec.calls["rank_prefix"]
     e = max_err(kernels.rank_prefix(*args, **kw), kernels.rank_prefix_plain(*args, **kw))
     if e != 0:
-        raise AssertionError(f"rank form: rank_prefix differs from plain by {e}")
+        raise AssertionError(f"wide route: rank_prefix differs from plain by {e}")
     errs["rank_prefix"] = max(errs["rank_prefix"], e)
 
     with torch.no_grad():
@@ -549,7 +550,7 @@ def rank_form_check(torch, kernels, render, RasterConfig, random_scene,
     for name in ("perm", "sorted_owner", "sorted_slot", "tile_start", "gm_start",
                  "num_instances", "num_rows"):
         if not torch.equal(getattr(bins[0], name), getattr(bins[1], name)):
-            raise AssertionError(f"rank form: {name} differs from the gather path")
+            raise AssertionError(f"wide route: {name} differs from the gather path")
     from gsjax_torch.tools.common import device_ms
 
     start, _ = args[:2]
@@ -557,7 +558,7 @@ def rank_form_check(torch, kernels, render, RasterConfig, random_scene,
     with torch.no_grad():
         ms = device_ms(lambda: kernels.rank_prefix(*args, **kw),
                        DEVICE_KERNELS["rank_prefix"])
-    emit({"phase": "kernels", "case": "rank_form_1080p_16x16", "gaussians": 600_000,
+    emit({"phase": "kernels", "case": "wide_route_1080p_16x16", "gaussians": 600_000,
           "num_instances": n_inst, "num_rows": n_rows, "rank_prefix": e,
           "binning_equals_gather_path": True, "launches": launched,
           "rank_prefix_ms": ms, "rank_prefix_bound_ms": max(
@@ -2266,7 +2267,8 @@ def phase_viewer(torch, kernels, render, scene, model_cfg, views):
         raise AssertionError("viewer: a frame wrote the training state")
     n_frames = len(served)
     per_frame = {k: launches[k] / n_frames for k in FORWARD_KERNELS}
-    expected = {"composite_forward": 1, "rank_prefix": 1, "row_engine": (0, 1),
+    # rank_prefix: 2 where owner and tile bits pass 32 (the wide route).
+    expected = {"composite_forward": 1, "rank_prefix": (1, 2), "row_engine": 1,
                 "row_gather": 2}
     if any(per_frame[k] not in (v if isinstance(v, tuple) else (v,))
            for k, v in expected.items()):

@@ -11,7 +11,10 @@ The layout of `gsjax.render.binning`, integer for integer:
    alpha >= 1/255 ellipse in the row's pixel strip, in closed form) gives
    its instances, and rows expand to instances. The fused level 1 is the
    row-engine kernel; the row -> instance expansion is the rank-prefix
-   kernel over packed (owner << bits_tile | tile) words.
+   kernel over packed (owner << bits_tile | tile) words. Where owner and
+   tile bits pass 32 the words carry the tile alone, and a second
+   rank-prefix expansion over the owners' instance run starts gives each
+   slot its owner: the same kernels at every size, no scatter.
 3. Per-tile ranges are raw [start, end) offsets into the sorted stream.
 4. Budget overflow drops pairs deepest-first; the true counts are reported.
 
@@ -173,8 +176,12 @@ def bin_gaussians(
       qmax: [N] alpha-threshold level 2 ln(255 op).
       height/width: image dims.
       cfg: rasterizer config.
-      packed_paths: None (default) takes the row-engine + packed paths when
-        the bit budgets fit; False forces the gather / 3-array-sort path.
+      packed_paths: None (default) takes the row engine and the rank-prefix
+        expansions (owner and tile in one word when their bits fit 32, else
+        the tile alone and the owner by a second rank expansion), and the
+        packed (tile, slot) sort key when it fits 32 bits; False forces the
+        gather path (mark-scatter expansions, plain row math, table
+        gathers, the stable tile sort), which only tests take.
       perm: optional precomputed depth permutation; when given, all array
         inputs are already in depth order.
     """
@@ -212,14 +219,18 @@ def bin_gaussians(
     bits_p = _bits(P - 1)  # slot values < P
     bits_tile_s = _bits(n_tiles)  # sort key incl. sentinel
     p = torch.arange(P, dtype=torch.int32, device=dev)
-    if auto and bits_g + bits_tile <= 32:
+    if auto:
+        # The word carries owner and tile while both fit 32 bits; past
+        # that it carries the tile alone, and each slot's owner is its
+        # rank among the owners' instance run starts.
+        wide = bits_g + bits_tile > 32
         zeros = torch.zeros_like(g_iota)
         table = torch.stack(
             [
                 rstart, rcum, y0, x0, x1,
                 _f2i(mp[:, 0]), _f2i(mp[:, 1]),
                 _f2i(co[:, 0]), _f2i(co[:, 1]), _f2i(co[:, 2]),
-                qm_cull, g_iota, zeros, zeros, zeros, zeros,
+                qm_cull, zeros if wide else g_iota, zeros, zeros, zeros, zeros,
             ],
             dim=0,
         )  # (16, N)
@@ -227,27 +238,26 @@ def bin_gaussians(
             table, total_rows, budget=R, tiles_x=tiles_x, tile_w=cfg.tw,
             tile_h=cfg.th, bits_tile=bits_tile,
         )
-        w = kernels.rank_prefix(
-            istart, delta, budget=P, plus_iota=True, dcum=u,
-        ).to(torch.int64) & 0xFFFFFFFF
+        w = kernels.rank_prefix(istart, delta, budget=P, plus_iota=True, dcum=u)
+        gm_start = _owner_starts(torch.cat([istart, total[None]]), rstart, rcum, R, P)
+        if wide:
+            tile = w
+            g = kernels.rank_prefix(
+                gm_start[:-1], torch.ones_like(g_iota), budget=P, init=-1,
+                dcum=g_iota + 1,
+            )
+        else:
+            w = w.to(torch.int64) & 0xFFFFFFFF
+            g = (w >> bits_tile).to(torch.int32)
+            tile = (w & ((1 << bits_tile) - 1)).to(torch.int32)
         ivalid = p < torch.clamp(total, max=P)
-        g = (w >> bits_tile).to(torch.int32)
-        tile = (w & ((1 << bits_tile) - 1)).to(torch.int32)
         tile = torch.where(ivalid, tile, n_tiles)  # sentinel sorts last
         g = torch.where(ivalid, g.clamp(0, n - 1), n)
-        inst_of_row = torch.cat([istart, total[None]])  # [R+1]
         return _group_and_finish(
-            perm, g, tile, p, inst_of_row, rstart, rcum, total, total_rows,
-            n, n_tiles, P, R, bits_tile_s, bits_p, auto,
+            perm, g, tile, p, gm_start, total, total_rows, n, n_tiles,
+            bits_tile_s, bits_p, auto,
         )
-    if auto:
-        # Sorted-run expansion by rank (bit-identical to _expand).
-        rowner = kernels.rank_prefix(
-            rstart, torch.ones_like(rstart), budget=R, init=-1,
-        )
-        r = torch.arange(R, dtype=torch.int32, device=dev)
-    else:
-        rowner, r = _expand(rstart, R)
+    rowner, r = _expand(rstart, R)
     rvalid = r < torch.clamp(total_rows, max=R)
     rg = rowner.clamp(0, n - 1).long()
     row_table = torch.stack(
@@ -282,16 +292,24 @@ def bin_gaussians(
     tile = it[:, 1] + (p - it[:, 0])
     tile = torch.where(ivalid, tile, n_tiles)
     g = torch.where(ivalid, it[:, 2].clamp(0, n - 1), n)
-    inst_of_row = torch.cat([istart, icum[-1:]])
+    gm_start = _owner_starts(torch.cat([istart, icum[-1:]]), rstart, rcum, R, P)
     return _group_and_finish(
-        perm, g, tile, p, inst_of_row, rstart, rcum, total, total_rows,
-        n, n_tiles, P, R, bits_tile_s, bits_p, auto,
+        perm, g, tile, p, gm_start, total, total_rows, n, n_tiles,
+        bits_tile_s, bits_p, auto,
     )
 
 
+def _owner_starts(inst_of_row, rstart, rcum, R, P) -> torch.Tensor:
+    """Gaussian-major run boundaries [N+1]: owner o's instances start at
+    the instance offset of its first row (budget-clamped); inst_of_row
+    [R+1] is the rows' exclusive instance cumsum and its total."""
+    row_of_owner = torch.clamp(torch.cat([rstart, rcum[-1:]]), max=R).long()
+    return torch.clamp(inst_of_row[row_of_owner], max=P).to(torch.int32)
+
+
 def _group_and_finish(
-    perm, g, tile, p, inst_of_row, rstart, rcum, total, total_rows,
-    n, n_tiles, P, R, bits_tile_s, bits_p, auto,
+    perm, g, tile, p, gm_start, total, total_rows, n, n_tiles,
+    bits_tile_s, bits_p, auto,
 ) -> Binning:
     """Group the expanded (owner, tile) stream by tile (stable) and build
     the run boundaries — the shared tail of both expansion paths. When
@@ -313,11 +331,6 @@ def _group_and_finish(
         bounds = torch.arange(n_tiles + 1, dtype=torch.int32, device=dev)
         tile_start = torch.searchsorted(sorted_tile, bounds).to(torch.int32)
     sorted_owner = torch.where(sorted_tile < n_tiles, sorted_owner, n).to(torch.int32)
-
-    # Gaussian-major run boundaries: owner o's instances start at the
-    # instance offset of its first row (budget-clamped).
-    row_of_owner = torch.clamp(torch.cat([rstart, rcum[-1:]]), max=R).long()
-    gm_start = torch.clamp(inst_of_row[row_of_owner], max=P).to(torch.int32)
 
     return Binning(
         perm=perm,

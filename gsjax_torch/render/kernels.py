@@ -630,12 +630,14 @@ def row_engine(
     if budget + n >= 2**31:
         raise ValueError(f"row_engine: budget + N = {budget + n} must stay below 2^31")
     # One allocation: the kernel's look-back status words and ticket (8-byte
-    # words, cleared by the C call), then istart, delta, u and total.
+    # words, cleared by the C call), then istart, delta and u. The total has
+    # its own: binning returns it as num_instances, which outlives the step,
+    # and a view of the buffer would hold all 3 * budget words alive.
     lib = library()
     words = 2 * lib.gsjt_row_engine_scratch_words(budget, n)
-    buf = torch.empty(words + 3 * budget + 1, dtype=torch.int32, device=dev)
-    istart, delta, u = buf[words:words + 3 * budget].view(3, budget).unbind(0)
-    total = buf[-1]
+    buf = torch.empty(words + 3 * budget, dtype=torch.int32, device=dev)
+    istart, delta, u = buf[words:].view(3, budget).unbind(0)
+    total = torch.empty((), dtype=torch.int32, device=dev)
     err = lib.gsjt_row_engine(
         table.data_ptr(), n, total_rows.data_ptr(), budget, tiles_x, tile_w,
         tile_h, bits_tile, buf.data_ptr(), istart.data_ptr(), delta.data_ptr(),

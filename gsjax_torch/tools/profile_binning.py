@@ -16,18 +16,25 @@ into its parts. The JAX tool's stages, as the port has them:
   7 inst cumsum (R)            the instance counts' cumsum
   8 L2 expand                  rank_prefix over the packed words (P slots)
   9 unpack + mask              owner and tile out of the packed words
-  10 tile sort                 the (tile, slot) key sort
+  10 tile sort                 the (tile, slot) key sort, or where the key
+                               passes 32 bits the stable sort of the tiles
   11 searchsorted tile starts  the tiles' first slots
 
 then `row_engine` (stages 4-7 fused in one kernel; with stage 8 the
-packed path), `rank_prefix` in the rank form's owner expansion at R, and
-the whole `bin_gaussians`. One JSON line per stage: event ms (CUDA
-events over ITERS runs, host work included), device ms (torch.profiler:
-all the stage's device work), the stage's device operations per run
-(kernels and memsets), and for the stages that are one kernel kernel_ms,
-that kernel's device time alone. Then the instance and row counts.
+packed path), `rank_prefix` in the owner expansion over the owners' run
+starts (P slots; on the path where owner and tile bits pass 32, when the
+words carry the tile alone), the gather path's level 2 (`_expand` at P,
+a mark scatter and a cumsum) and the whole `bin_gaussians`. One JSON
+line per stage: event ms (CUDA events over ITERS runs, host work
+included), device ms (torch.profiler: all the stage's device work), the
+stage's device operations per run (kernels and memsets), and for the
+stages that are one kernel kernel_ms, that kernel's device time alone.
+Then the instance and row counts and the route.
 
     python -m gsjax_torch.tools.profile_binning
+    # the benchmark's garden scale: 22 owner bits, 13 tile bits
+    python -m gsjax_torch.tools.profile_binning --n 4194304 --width 1297 \
+        --height 840 --tile 16 --max_instances 33554432 --max_rows 16777216
 
 It runs against an earlier tree of the package as well (copy this file
 into that tree's gsjax_torch/tools/): two trees compared in one call, in
@@ -37,6 +44,8 @@ checks that the stages rebuild bin_gaussians' stream; it times nothing.
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
 import json
 
 import torch
@@ -57,10 +66,10 @@ from gsjax_torch.tools.common import (
 ITERS = 30
 DEVICE_REPS = 20
 L2 = "8 L2 expand: rank_prefix (P slots)"
-RANK_FORM = "rank_prefix, rank form (R slots)"
+OWNER_EXPANSION = "rank_prefix, owner expansion (P slots)"
 # The stages that are one kernel, and its name as the profiler reports it.
 KERNEL_NAMES = {"row_engine": "row_engine_", L2: "rank_prefix_kernel",
-                RANK_FORM: "rank_prefix_kernel"}
+                OWNER_EXPANSION: "rank_prefix_kernel"}
 
 
 def stages(params, aux, camera, cfg) -> tuple[dict, dict]:
@@ -116,11 +125,17 @@ def stages(params, aux, camera, cfg) -> tuple[dict, dict]:
 
     bits_tile = B._bits(n_tiles - 1)
     bits_p = B._bits(P - 1)
+    # As bin_gaussians: the word carries the tile alone where owner and
+    # tile bits pass 32, and the stable tile sort replaces the key sort
+    # where (tile, slot) does.
+    wide = B._bits(n - 1) + bits_tile > 32
+    key_sort = B._bits(n_tiles) + bits_p <= 32
     zeros = torch.zeros(n, dtype=torch.int32, device=dev)
+    g_iota = torch.arange(n, dtype=torch.int32, device=dev)
     table = torch.stack(
         [rstart, rcum, y0, x0, x1, B._f2i(mp[:, 0]), B._f2i(mp[:, 1]),
          B._f2i(co[:, 0]), B._f2i(co[:, 1]), B._f2i(co[:, 2]), qm_cull,
-         torch.arange(n, dtype=torch.int32, device=dev), zeros, zeros, zeros, zeros],
+         zeros if wide else g_iota, zeros, zeros, zeros, zeros],
         dim=0)
 
     def row_engine():
@@ -132,20 +147,38 @@ def stages(params, aux, camera, cfg) -> tuple[dict, dict]:
     def level2():
         return kernels.rank_prefix(istart, delta, budget=P, plus_iota=True, dcum=u)
 
-    w = level2().to(torch.int64) & 0xFFFFFFFF
+    w = level2()
     p = torch.arange(P, dtype=torch.int32, device=dev)
+    ivalid = p < torch.clamp(total, max=P)
+    inst_of_row = torch.cat([istart, total[None]])
+    row_of_owner = torch.clamp(torch.cat([rstart, rcum[-1:]]), max=R).long()
+    gm_start = torch.clamp(inst_of_row[row_of_owner], max=P).to(torch.int32)
+    ones = torch.ones_like(rstart)
+
+    def owner_expansion():
+        return kernels.rank_prefix(gm_start[:-1], ones, budget=P, init=-1,
+                                   dcum=g_iota + 1)
+
+    owners = owner_expansion()
 
     def unpack():
-        ivalid = p < torch.clamp(total, max=P)
-        g = torch.where(ivalid, (w >> bits_tile).to(torch.int32).clamp(0, n - 1), n)
-        tile = torch.where(ivalid, (w & ((1 << bits_tile) - 1)).to(torch.int32), n_tiles)
+        if wide:
+            return (torch.where(ivalid, owners.clamp(0, n - 1), n),
+                    torch.where(ivalid, w, n_tiles))
+        w64 = w.to(torch.int64) & 0xFFFFFFFF
+        g = torch.where(ivalid, (w64 >> bits_tile).to(torch.int32).clamp(0, n - 1), n)
+        tile = torch.where(ivalid, (w64 & ((1 << bits_tile) - 1)).to(torch.int32), n_tiles)
         return g, tile
 
     g, tile = unpack()
-    key = (tile.long() << bits_p) | p.long()
-    skey = torch.sort(key)[0]
-    bounds = torch.arange(n_tiles + 1, dtype=torch.int64, device=dev) << bits_p
-    ones = torch.ones_like(rstart)
+    if key_sort:
+        key = (tile.long() << bits_p) | p.long()
+        bounds = torch.arange(n_tiles + 1, dtype=torch.int64, device=dev) << bits_p
+        tile_sort = lambda: torch.sort(key)  # noqa: E731
+    else:
+        bounds = torch.arange(n_tiles + 1, dtype=torch.int32, device=dev)
+        tile_sort = lambda: torch.sort(tile, stable=True)  # noqa: E731
+    skey = tile_sort()[0]
 
     table_of_stages = {
         "1 depth sort": lambda: B.depth_order(depth),
@@ -157,35 +190,36 @@ def stages(params, aux, camera, cfg) -> tuple[dict, dict]:
         "7 inst cumsum (R)": lambda: torch.cumsum(inst_counts, dim=0, dtype=torch.int32),
         L2: level2,
         "9 unpack + mask": unpack,
-        "10 tile sort": lambda: torch.sort(key),
+        "10 tile sort": tile_sort,
         "11 searchsorted tile starts": lambda: torch.searchsorted(skey, bounds),
         "row_engine": row_engine,
-        RANK_FORM: lambda: kernels.rank_prefix(
-            rstart, ones, budget=R, init=-1),
+        OWNER_EXPANSION: owner_expansion,
+        "_expand (P slots), the gather path's level 2": lambda: B._expand(istart, P),
         "bin_gaussians (whole)": lambda: B.bin_gaussians(
             mean_pix, depth, ext, conic, qmax, height, width, cfg),
     }
-    outputs = dict(g=g, total=total, total_rows=total_rows, rowner=rowner,
-                   bits_p=bits_p)
+    outputs = dict(g=g, total=total, total_rows=total_rows, ivalid=ivalid,
+                   shift=bits_p if key_sort else 0, wide=wide, key_sort=key_sort)
     return table_of_stages, outputs
 
 
 def check(table_of_stages: dict, outputs: dict) -> None:
     """The stages rebuild bin_gaussians' stream: the same instance count,
-    per-tile starts and tile-sorted owners; the rank form's owners equal
-    the gather path's."""
+    per-tile starts and tile-sorted owners; the owner expansion's owners
+    equal the packed words' on the packed path."""
     whole = table_of_stages["bin_gaussians (whole)"]()
     skey, order = table_of_stages["10 tile sort"]()
     n_tiles = whole.tile_start.shape[0] - 1
-    owner = torch.where((skey >> outputs["bits_p"]) < n_tiles, outputs["g"][order],
-                        whole.perm.shape[0])
+    n = whole.perm.shape[0]
+    owner = torch.where((skey >> outputs["shift"]) < n_tiles, outputs["g"][order], n)
     starts = table_of_stages["11 searchsorted tile starts"]().to(torch.int32)
-    ranked = table_of_stages[RANK_FORM]()
+    owners = table_of_stages[OWNER_EXPANSION]().clamp(0, n - 1)
     for what, ok in (
         ("instance count", int(whole.num_instances) == int(outputs["total"])),
         ("tile starts", torch.equal(starts, whole.tile_start)),
         ("sorted owners", torch.equal(owner.to(torch.int32), whole.sorted_owner)),
-        ("rank form owners", torch.equal(ranked, outputs["rowner"])),
+        ("expanded owners", torch.equal(torch.where(outputs["ivalid"], owners, n),
+                                        outputs["g"])),
     ):
         if not ok:
             raise AssertionError(f"profile_binning: the stages' {what} differ "
@@ -217,25 +251,38 @@ def profile(params, aux, camera, cfg, iters: int = ITERS,
     rows.append({"tool": "profile_binning", "num_instances": int(outputs["total"]),
                  "num_rows": int(outputs["total_rows"]),
                  "budgets": {"max_instances": cfg.max_instances,
-                             "max_rows": cfg.max_rows}})
+                             "max_rows": cfg.max_rows},
+                 "gaussians": params.capacity, "view": [camera.width, camera.height],
+                 "tile": [cfg.tw, cfg.th], "owner_in_word": not outputs["wide"],
+                 "slot_in_sort_key": outputs["key_sort"]})
     return rows
 
 
 def run(device=None, n: int | None = None, width: int | None = None,
-        height: int | None = None, budgets: dict | None = None) -> list[dict]:
-    """profile() of the bench scene; with device="cpu" (and a small scene)
-    every stage runs once and is checked."""
+        height: int | None = None, budgets: dict | None = None,
+        tile: int | None = None) -> list[dict]:
+    """profile() of the bench scene (or another size of it); with
+    device="cpu" (and a small scene) every stage runs once and is checked."""
     kw = {k: v for k, v in dict(n=n, width=width, height=height,
                                 budgets=budgets).items() if v is not None}
-    return profile(*bench_scene(device=device, **kw))
+    params, aux, camera, cfg = bench_scene(device=device, **kw)
+    if tile is not None:
+        cfg = dataclasses.replace(cfg, tile_w=tile, tile_h=tile)
+    return profile(params, aux, camera, cfg)
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    for flag in ("n", "width", "height", "tile", "max_instances", "max_rows"):
+        ap.add_argument(f"--{flag}", type=int)
+    args = ap.parse_args()
+    budgets = {k: getattr(args, k) for k in ("max_instances", "max_rows")}
     require_card("profile_binning")
     kernels.build()
     print(json.dumps({"tool": "profile_binning", "device": torch.cuda.get_device_name(0),
                       "package": str(kernels.CSRC.parent)}), flush=True)
-    for row in run():
+    for row in run(n=args.n, width=args.width, height=args.height, tile=args.tile,
+                   budgets=budgets if all(budgets.values()) else None):
         print(json.dumps(row), flush=True)
 
 

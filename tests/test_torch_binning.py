@@ -151,29 +151,87 @@ def test_bin_gaussians_own_depth_sort_matches_gsjax(ordered):
         np.testing.assert_array_equal(n(getattr(b, name)), np.asarray(getattr(a, name)), name)
 
 
-def test_bin_gaussians_rank_form_matches_gsjax(monkeypatch):
-    """The rank form of level 1, taken when owner and tile bits do not fit
-    one 32-bit word (here 4097 Gaussians -> 13 bits, an 8192x8192 view in
-    8x8 tiles -> 2^20 tiles, 20 bits; at 1920x1080 with 16x16 tiles any
-    scene above 2^19 Gaussians takes it): integers equal to gsjax's, with
-    the plain rank_prefix bit for bit against the Pallas kernel's owner
-    expansion."""
-    big = 8192
+# Owner and tile bits past one 32-bit word: 4097 Gaussians -> 13 bits, an
+# 8192x8192 view in 8x8 tiles -> 2^20 tiles, 20 bits (at 1920x1080 with
+# 16x16 tiles any scene above 2^19 Gaussians is as wide).
+BIG = 8192
+WIDE_CFG = dict(tile_size=8, max_instances=1 << 17, max_rows=1 << 15)
+WIDE_CASES = {
+    # name: (RasterConfig kwargs, with_perm, held against, overflow)
+    "instance_overflow": (dict(WIDE_CFG, max_instances=1 << 15), True, "gsjax", "instances"),
+    "row_overflow": (dict(WIDE_CFG, max_rows=1 << 13), True, "gsjax", "rows"),
+    "own_depth_sort": (WIDE_CFG, False, "gsjax", None),
+    "gather_path": (WIDE_CFG, True, "gather_path", None),
+}
+
+
+@pytest.fixture(scope="module")
+def wide():
+    """gsjax's depth-ordered binning inputs at the wide widths (numpy)."""
     params, aux = random_scene(4097, seed=4, scale_range=(0.001, 0.003))
-    inputs = _ordered_inputs(params, aux, look_at_origin_camera(big, big))
-    cfg_kw = dict(tile_size=8, max_instances=1 << 17, max_rows=1 << 15)
-    engine = _record(monkeypatch, kernels, "row_engine")
+    return _ordered_inputs(params, aux, look_at_origin_camera(BIG, BIG))
+
+
+def _wide_route(monkeypatch):
+    """Record the port's row_engine and rank_prefix calls."""
+    return _record(monkeypatch, kernels, "row_engine"), _record(monkeypatch, kernels, "rank_prefix")
+
+
+def _assert_wide_route(engine, ranks, cfg_kw):
+    """One row engine, then the tile expansion and the owner expansion,
+    both over the instance budget."""
+    assert len(engine) == 1
+    assert [(kw["budget"], kw.get("plus_iota", False), kw.get("init", 0))
+            for _, kw, _ in ranks] == [(cfg_kw["max_instances"], True, 0),
+                                       (cfg_kw["max_instances"], False, -1)]
+
+
+def test_bin_gaussians_rank_form_matches_gsjax(wide, monkeypatch):
+    """The wide route, taken when owner and tile bits do not fit one
+    32-bit word: the row engine with a tile-only word, a rank expansion of
+    the tiles and one of the owners over the instance budget; integers
+    equal to gsjax's, with the plain rank_prefix bit for bit against the
+    Pallas kernel's owner expansion."""
+    engine, port_ranks = _wide_route(monkeypatch)
     ranks = _record(monkeypatch, jbin, "rank_prefix_pallas")
-    a, b = _bin_both(inputs, cfg_kw, None, height=big, width=big)
-    assert not engine and [kw.get("init") for _, kw, _ in ranks] == [-1]
+    a, b = _bin_both(wide, WIDE_CFG, None, height=BIG, width=BIG)
+    _assert_wide_route(engine, port_ranks, WIDE_CFG)
+    assert [kw.get("init") for _, kw, _ in ranks] == [-1]
     for name in OUT:
         np.testing.assert_array_equal(n(getattr(b, name)), np.asarray(getattr(a, name)), name)
-    assert 0 < int(b.num_instances) <= cfg_kw["max_instances"]
+    assert 0 < int(b.num_instances) <= WIDE_CFG["max_instances"]
     (start, ones), kw, want = ranks[0]
     got = kernels.rank_prefix_plain(
         t(start), t(np.asarray(ones).view(np.int32)), budget=kw["budget"], init=-1,
     )
     np.testing.assert_array_equal(n(got).view(np.uint32), np.asarray(want))
+
+
+@pytest.mark.parametrize("case", list(WIDE_CASES))
+def test_bin_gaussians_wide_route_exact(wide, case, monkeypatch):
+    """The wide route under instance and row overflow, with its own depth
+    sort, and against the port's own gather path, integer for integer."""
+    cfg_kw, with_perm, against, overflow = WIDE_CASES[case]
+    engine, ranks = _wide_route(monkeypatch)
+    if against == "gsjax":
+        a, b = _bin_both(wide, cfg_kw, None, with_perm=with_perm, height=BIG, width=BIG)
+        want = {name: np.asarray(getattr(a, name)) for name in OUT}
+    else:
+        args = [t(wide[k]) for k in ("mean_pix", "depth", "ext", "conic", "qmax")]
+        b, g = (tbin.bin_gaussians(*args, BIG, BIG, RasterConfig(**cfg_kw),
+                                   packed_paths=pp, perm=t(wide["perm"]))
+                for pp in (None, False))
+        want = {name: n(getattr(g, name)) for name in OUT}
+    _assert_wide_route(engine, ranks, cfg_kw)
+    for name in OUT:
+        np.testing.assert_array_equal(n(getattr(b, name)), want[name], name)
+    assert int(b.num_instances) > 0
+    if overflow == "instances":
+        assert int(b.num_instances) > cfg_kw["max_instances"]
+    if overflow == "rows":
+        assert int(b.num_rows) > cfg_kw["max_rows"]
+    else:
+        assert int(b.num_rows) <= cfg_kw["max_rows"]
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -200,8 +258,8 @@ def test_rank_prefix_plain_matches_pallas(seed):
 
 
 def test_rank_owner_expansion_equals_mark_scatter():
-    """The rank form of level 1 (taken when the packed bit budget does not
-    fit) is the boundary-mark expansion, bit for bit."""
+    """The rank expansion of run starts (the wide route's owner expansion)
+    is the gather path's boundary-mark expansion, bit for bit."""
     rng = np.random.default_rng(7)
     counts = rng.integers(0, 4, 500)
     rstart = t(np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int32))

@@ -187,6 +187,45 @@ def test_rank_prefix_expand_cases_match_plain(card, scale, case):
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
 
 
+def test_binning_wide_route_at_cell_scale(card):
+    """At the benchmark cells' widths (4,194,304 slots, 22 bits; 1297x840
+    in 16x16 tiles, 13 bits; budgets 2^25 / 2^24) binning takes the wide
+    route: its integers equal the gather path's on the card bit for bit,
+    and a captured render launches one row engine and two rank
+    expansions."""
+    from gsjax_torch.render import graph
+    from gsjax_torch.render.binning import bin_gaussians
+    from gsjax_torch.render.preprocess import preprocess
+
+    params, aux = random_scene(2_960_000, capacity=4_194_304, seed=3, spread=2.5,
+                               scale_range=(0.004, 0.03), device=card)
+    cam = look_at_origin_camera(1297, 840, device=card)
+    cfg = RasterConfig(tile_size=16, max_instances=1 << 25, max_rows=1 << 24)
+    with torch.no_grad():
+        proj = preprocess(
+            xyz=params.xyz, sh=params.get_features(), opacity=params.get_opacity(),
+            scaling=params.get_scaling(), rotation=params.rotation, camera=cam,
+            active_sh_degree=3, alive=aux.alive,
+        )
+        wide, gather = (bin_gaussians(proj.mean_pix, proj.depth, proj.ext, proj.conic,
+                                      proj.qmax, 840, 1297, cfg, packed_paths=pp)
+                        for pp in (None, False))
+    assert 0 < int(wide.num_instances) <= cfg.max_instances
+    assert int(wide.num_rows) <= cfg.max_rows
+    for name in ("perm", "sorted_owner", "sorted_slot", "tile_start", "gm_start",
+                 "num_instances", "num_rows"):
+        assert torch.equal(getattr(wide, name), getattr(gather, name)), name
+
+    graph.reset_graph_counts()
+    bg = torch.zeros(3, device=card)
+    out = graph.render_replayed(params, cam, active_sh_degree=3, bg_color=bg, cfg=cfg,
+                                alive=aux.alive)
+    assert int(out.num_instances) == int(wide.num_instances)
+    launches = graph.captures[-1]["launches"]
+    assert (launches["row_engine"], launches["rank_prefix"]) == (1, 2), launches
+    graph.drop_render_graphs()
+
+
 def test_row_engine_and_rank_prefix_launch_once(card):
     """One row_engine call is one kernel launch and one memset; one
     rank_prefix call with dcum given is one kernel launch."""

@@ -306,6 +306,6 @@ def test_profile_binning_stages_rebuild_bin_gaussians():
                                budgets=dict(max_instances=8192, max_rows=4096))
     stages = [r["stage"] for r in rows if "stage" in r]
     assert stages[:11] == [s for s in stages if s[0].isdigit()]
-    assert {"row_engine", profile_binning.RANK_FORM, "bin_gaussians (whole)"} <= set(stages)
+    assert {"row_engine", profile_binning.OWNER_EXPANSION, "bin_gaussians (whole)"} <= set(stages)
     assert all(r["device_ms"] == "not measured" for r in rows if "stage" in r)
     assert 0 < rows[-1]["num_instances"] <= 8192
